@@ -1,0 +1,463 @@
+"""Plan-pair migrations of the flat shared state (PyTorch).
+
+The counterpart of ``repro.ps.elastic``, flat half.  Two executors re-lay
+a state from one FlatPlan to another:
+
+``migrate_flat_state``
+    The full-gather ORACLE: one permutation gather over the whole new
+    space, O(total bytes), returning new tensors.
+
+``migrate_flat_state_delta``
+    The shipped O(moved-bytes) path: a :class:`MigrationDelta` compiled
+    per plan pair names the moved runs and vacated lanes, and the
+    relayout kernels (``repro_torch.kernels.relayout``) stage and scatter
+    only the touched blocks of flat/mu/nu in one launch each.  Bit-exact
+    with the oracle on valid states (non-payload lanes zero).  A buffer
+    that keeps its length is updated IN PLACE.
+
+``compile_migration_delta`` builds the delta from the plans' segments:
+a common segment moves rigidly (one shift for all its lanes), so the
+runs, the vacated intervals and the touched blocks follow from
+O(segments) interval arithmetic, and only the per-lane staging map costs
+O(touched lanes).  It produces the reference's ``MigrationDelta`` field
+for field (the tests hold it to that on randomized plan pairs) without
+the reference's O(total lanes) int64 arrays, which at the paper
+workloads' 634 M lanes would take tens of GB of host memory per replan.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import host_to_device
+from .plan import FlatPlan, plan_migration_bytes
+
+
+class PlanPerm(NamedTuple):
+    """Precompiled (old -> new) lane permutation for one plan pair."""
+
+    idx: np.ndarray  # (new.total_len,) int64 source lanes
+    keep: np.ndarray  # (new.total_len,) bool: covered by a common segment
+    all_kept: bool
+    identity: bool  # the move is a no-op (every lane stays put)
+
+
+class MigrationDelta(NamedTuple):
+    """Compiled plan-pair transition: only what CHANGES, as runs.
+
+    ``moves`` are maximal contiguous runs of kept lanes whose flat
+    position changed (constant shift within a run); ``zeros`` are runs of
+    lanes that held old payload at a position no common segment covers in
+    the new plan and must read zero afterwards.  ``touched_blocks`` are
+    the new-plan ``block_align`` blocks any run intersects, with
+    ``stage_map`` the per-lane source map of exactly those blocks (packed,
+    block order) as the staging kernel reads it: int32, -1 on lanes that
+    carry no payload.  ``touched_jobs`` are the jobs whose segment layout
+    differs between the plans (arrivals and exits included): only they
+    are quiesced by a replan.  The reference's ``stage_src`` (int64, 0
+    where empty) and ``stage_keep`` (bool) are derived from ``stage_map``
+    on demand, so a compile writes 4 bytes per staged lane instead of 9.
+    """
+
+    old_len: int
+    new_len: int
+    block: int  # new plan's block_align
+    moves: Tuple[Tuple[int, int, int], ...]  # (src, dst, length) runs
+    zeros: Tuple[Tuple[int, int], ...]  # (dst, length) runs
+    touched_jobs: Tuple[str, ...]
+    touched_blocks: np.ndarray  # new-plan block ids hit by moves/zeros
+    stage_map: np.ndarray  # (n_touched*block,) int32 source lane, -1 empty
+    moved_elements: int
+    zeroed_elements: int
+
+    @property
+    def stage_src(self) -> np.ndarray:
+        """(n_touched*block,) int64 source lane per lane, 0 where empty."""
+        return np.maximum(self.stage_map, 0).astype(np.int64)
+
+    @property
+    def stage_keep(self) -> np.ndarray:
+        """(n_touched*block,) bool: the lane carries payload."""
+        return self.stage_map >= 0
+
+    @property
+    def identity(self) -> bool:
+        """Nothing to execute: same length, no moves, nothing vacated."""
+        return (self.old_len == self.new_len and not self.moves
+                and not self.zeros)
+
+    @property
+    def n_runs(self) -> int:
+        return len(self.moves) + len(self.zeros)
+
+    def moved_bytes(self, bytes_per_element: int = 12) -> int:
+        """Bytes the delta path copies (master + both moments at 4 B)."""
+        return self.moved_elements * bytes_per_element
+
+
+# ------------------------------------------------------- bounded pair cache
+class _PlanPairCache:
+    """Size-bounded LRU for per-plan-pair structures (perms + deltas):
+    evicts least-recently-used entries once the numpy payload exceeds
+    ``max_bytes``, so a long-lived service cannot leak one structure per
+    replan."""
+
+    def __init__(self, max_bytes: int = 256 << 20):
+        self.max_bytes = int(max_bytes)
+        self._entries: "OrderedDict[Any, Tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @staticmethod
+    def _nbytes(value: Any) -> int:
+        # Every entry pays a floor (its key pins two FlatPlans) plus its
+        # numpy AND python-tuple payload.
+        def size(v: Any) -> int:
+            n = getattr(v, "nbytes", None)
+            if n is not None:
+                return int(n)
+            if isinstance(v, tuple):
+                return 56 + sum(size(x) for x in v)
+            return 32
+
+        fields = getattr(value, "_fields", None)
+        payload = (sum(size(getattr(value, f)) for f in fields)
+                   if fields else size(value))
+        return 1024 + payload
+
+    def get(self, key):
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return entry[0]
+
+    def put(self, key, value) -> None:
+        nbytes = self._nbytes(value)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+            while self._bytes > self.max_bytes and len(self._entries) > 1:
+                _, (_, freed) = self._entries.popitem(last=False)
+                self._bytes -= freed
+                self.evictions += 1
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "max_bytes": self.max_bytes,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+    def resize(self, max_bytes: int) -> None:
+        with self._lock:
+            self.max_bytes = int(max_bytes)
+            while self._bytes > self.max_bytes and self._entries:
+                _, (_, freed) = self._entries.popitem(last=False)
+                self._bytes -= freed
+                self.evictions += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+
+_PAIR_CACHE = _PlanPairCache()
+
+
+def plan_cache_stats() -> Dict[str, int]:
+    """Hits/misses/evictions/bytes of the per-plan-pair structure cache."""
+    return _PAIR_CACHE.stats()
+
+
+def set_plan_cache_limit(max_bytes: int) -> None:
+    """Bound the per-plan-pair cache; evicts immediately if over."""
+    _PAIR_CACHE.resize(max_bytes)
+
+
+def clear_plan_cache() -> None:
+    _PAIR_CACHE.clear()
+
+
+def _plan_perm(old: FlatPlan, new: FlatPlan) -> PlanPerm:
+    """(idx, keep) with new_flat[i] = old_flat[idx[i]] where keep[i], else
+    0.  Lanes not covered by a common segment get keep=False.  O(total
+    lanes): the oracle's structure, cached per plan pair."""
+    key = ("perm", old, new)
+    cached = _PAIR_CACHE.get(key)
+    if cached is not None:
+        return cached
+    old_by_key = old.by_skey
+    idx = np.zeros(new.total_len, dtype=np.int64)
+    keep = np.zeros(new.total_len, dtype=bool)
+    for seg in new.segments:
+        o = old_by_key.get(seg.skey)
+        if o is None:
+            continue  # new job's segment: zero-initialized
+        if o.size != seg.size:
+            raise ValueError(
+                f"segment {seg.skey} changed size {o.size} -> {seg.size}")
+        src = old.start(o)
+        dst = new.start(seg)
+        idx[dst : dst + seg.size] = np.arange(src, src + seg.size)
+        keep[dst : dst + seg.size] = True
+    all_kept = bool(keep.all())
+    identity = (
+        all_kept
+        and old.total_len == new.total_len
+        and bool((idx == np.arange(new.total_len)).all())
+    )
+    idx.setflags(write=False)
+    keep.setflags(write=False)
+    perm = PlanPerm(idx, keep, all_kept, identity)
+    _PAIR_CACHE.put(key, perm)
+    return perm
+
+
+def _job_layout_sigs(plan: FlatPlan) -> Dict[str, Tuple]:
+    """Per-job layout fingerprint: absolute (start, size, key) of every
+    segment, the block granularity, and whether the job owns EVERY block
+    of the space.  Equal fingerprints mean the job's lanes, blocks and
+    packed slots are identical in both plans.  O(segments log segments)."""
+    block = max(1, plan.block_align)
+    n_blocks_total = -(-plan.total_len // block)
+    sigs: Dict[str, list] = {}
+    spans: Dict[str, list] = {}
+    for seg in plan.segments:
+        start = plan.start(seg)
+        sigs.setdefault(seg.job_id, []).append((start, seg.size, seg.key))
+        spans.setdefault(seg.job_id, []).append(
+            (start // block, (start + seg.size - 1) // block + 1))
+    out = {}
+    for j, v in sigs.items():
+        n_owned, end = 0, -1
+        for lo, hi in sorted(spans[j]):  # merged half-open block intervals
+            lo = max(lo, end)
+            if hi > lo:
+                n_owned += hi - lo
+                end = hi
+        out[j] = (block, n_owned == n_blocks_total, tuple(sorted(v)))
+    return out
+
+
+def plan_transition_summary(old: FlatPlan, new: FlatPlan):
+    """Segment-level view of a plan transition, O(segments): returns
+    ``(moved_elements, touched_jobs)``, equal to the delta's."""
+    key = ("summary", old, new)
+    cached = _PAIR_CACHE.get(key)
+    if cached is not None:
+        return cached
+    old_by_key = old.by_skey
+    moved = 0
+    for seg in new.segments:
+        o = old_by_key.get(seg.skey)
+        if o is None:
+            continue
+        if o.size != seg.size:
+            raise ValueError(
+                f"segment {seg.skey} changed size {o.size} -> {seg.size}")
+        if old.start(o) != new.start(seg):
+            moved += seg.size
+    old_sigs = _job_layout_sigs(old)
+    new_sigs = _job_layout_sigs(new)
+    touched = tuple(sorted(
+        j for j in set(old_sigs) | set(new_sigs)
+        if old_sigs.get(j) != new_sigs.get(j)))
+    summary = (moved, touched)
+    _PAIR_CACHE.put(key, summary)
+    return summary
+
+
+def _merged(intervals) -> List[Tuple[int, int]]:
+    """Sorted half-open intervals with touching/overlapping ones merged."""
+    out: List[List[int]] = []
+    for lo, hi in sorted(i for i in intervals if i[1] > i[0]):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [(lo, hi) for lo, hi in out]
+
+
+def _subtract(a: List[Tuple[int, int]], b: List[Tuple[int, int]]):
+    """Merged intervals ``a`` minus merged intervals ``b``."""
+    out, j = [], 0
+    for lo, hi in a:
+        while j < len(b) and b[j][1] <= lo:
+            j += 1
+        k = j
+        while lo < hi and k < len(b) and b[k][0] < hi:
+            if b[k][0] > lo:
+                out.append((lo, b[k][0]))
+            lo = max(lo, b[k][1])
+            k += 1
+        if lo < hi:
+            out.append((lo, hi))
+    return out
+
+
+def compile_migration_delta(old: FlatPlan, new: FlatPlan) -> MigrationDelta:
+    """Compile the O(moved-bytes) transition for one plan pair (cached).
+
+    Built from segments: every common segment keeps one shift (old start
+    minus new start), so ``moves`` are the common segments with a
+    non-zero shift, merged where they abut in the new space with equal
+    shift; ``zeros`` are the old payload intervals not covered by a
+    common segment in the new plan, below both lengths.  Equal, field for
+    field, to ``repro.ps.elastic.compile_migration_delta``.
+    """
+    key = ("delta", old, new)
+    cached = _PAIR_CACHE.get(key)
+    if cached is not None:
+        return cached
+    old_len, new_len = old.total_len, new.total_len
+    old_by_key = old.by_skey
+    common = []  # (new start, size, shift) of every common segment
+    for seg in new.segments:
+        o = old_by_key.get(seg.skey)
+        if o is None:
+            continue
+        if o.size != seg.size:
+            raise ValueError(
+                f"segment {seg.skey} changed size {o.size} -> {seg.size}")
+        dst = new.start(seg)
+        common.append((dst, seg.size, old.start(o) - dst))
+    common.sort()
+
+    runs: List[List[int]] = []  # [dst, length, shift]
+    for dst, size, shift in common:
+        if shift == 0 or size == 0:
+            continue
+        if runs and runs[-1][0] + runs[-1][1] == dst and runs[-1][2] == shift:
+            runs[-1][1] += size
+        else:
+            runs.append([dst, size, shift])
+    moves = tuple((d + s, d, n) for d, n, s in runs)
+
+    limit = min(old_len, new_len)
+    payload = _merged((old.start(s), old.start(s) + s.size)
+                      for s in old.segments)
+    kept = _merged((d, d + n) for d, n, _ in common)
+    zeros = tuple((lo, hi - lo) for lo, hi in _subtract(
+        [(lo, min(hi, limit)) for lo, hi in payload if lo < limit], kept))
+
+    block = max(1, int(new.block_align))
+    spans = [(d, n) for _, d, n in moves] + list(zeros)
+    if spans:
+        touched_blocks = np.unique(np.concatenate([
+            np.arange(d // block, (d + n - 1) // block + 1, dtype=np.int64)
+            for d, n in spans]))
+    else:
+        touched_blocks = np.zeros(0, np.int64)
+    touched_blocks = touched_blocks.astype(np.int32)
+
+    # Per-lane source map of the touched blocks only (kernel staging).
+    # Runs of consecutive touched blocks are contiguous spans of the new
+    # space (at most one per move/zero run), so each common segment
+    # fills its overlap with each span as one arange.
+    tb = touched_blocks.astype(np.int64)
+    stage_map = np.full(tb.size * block, -1, dtype=np.int32)
+    if tb.size and old_len >= 2**31:
+        raise ValueError(f"old_len={old_len} lanes do not fit the int32 "
+                         f"staging map")
+    if tb.size:
+        first = np.concatenate([[0], np.nonzero(np.diff(tb) != 1)[0] + 1])
+        last = np.concatenate([first[1:] - 1, [tb.size - 1]])
+        span_lo, span_hi = tb[first] * block, (tb[last] + 1) * block
+        span_off = first * block
+        for d, n, shift in common:
+            i = int(np.searchsorted(span_hi, d, side="right"))
+            while i < span_lo.size and span_lo[i] < d + n:
+                lo = max(d, int(span_lo[i]))
+                hi = min(d + n, int(span_hi[i]), new_len)
+                if lo < hi:
+                    o = int(span_off[i]) + lo - int(span_lo[i])
+                    stage_map[o : o + hi - lo] = np.arange(
+                        lo + shift, hi + shift, dtype=np.int32)
+                i += 1
+
+    _, touched_jobs = plan_transition_summary(old, new)
+    for arr in (touched_blocks, stage_map):
+        arr.setflags(write=False)
+    delta = MigrationDelta(
+        old_len=old_len, new_len=new_len, block=block, moves=moves,
+        zeros=zeros, touched_jobs=touched_jobs,
+        touched_blocks=touched_blocks, stage_map=stage_map,
+        moved_elements=sum(n for _, _, n in moves),
+        zeroed_elements=sum(n for _, n in zeros),
+    )
+    _PAIR_CACHE.put(key, delta)
+    return delta
+
+
+def migrate_flat_state(state: Dict[str, Any], old: FlatPlan, new: FlatPlan):
+    """Full-gather migration oracle, O(total bytes): every 1-D leaf of
+    length ``old.total_len`` is gathered onto the new layout as a NEW
+    tensor (the input is never written); counters pass through.  Equal
+    plans, and permutations that turn out to be the identity, return the
+    state untouched."""
+    if old == new:
+        return state
+    perm = _plan_perm(old, new)
+    if perm.identity:
+        return state
+    out = dict(state)
+    for k, x in state.items():
+        if not isinstance(x, torch.Tensor) or x.dim() != 1 \
+                or x.shape[0] != old.total_len:
+            continue
+        idx = host_to_device(perm.idx, x.device, torch.int64)
+        moved = x[idx]
+        if not perm.all_kept:
+            keep = host_to_device(perm.keep, x.device, torch.bool)
+            moved = torch.where(keep, moved, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+        out[k] = moved
+    return out
+
+
+def migrate_flat_state_delta(state: Dict[str, Any], old: FlatPlan,
+                             new: FlatPlan, *,
+                             delta: Optional[MigrationDelta] = None):
+    """O(moved-bytes) migration: execute only the compiled delta's runs,
+    all 1-D leaves (flat, mu, nu) in one relayout pass.  Bit-exact with
+    :func:`migrate_flat_state` on valid states.  Leaves that keep their
+    length are updated in place."""
+    if old == new:
+        return state
+    if delta is None:
+        delta = compile_migration_delta(old, new)
+    if delta.identity:
+        return state
+    from ..kernels.relayout import ops as relayout_ops
+
+    keys = [k for k, v in state.items()
+            if isinstance(v, torch.Tensor) and v.dim() == 1
+            and v.shape[0] == delta.old_len]
+    moved = relayout_ops.relayout([state[k] for k in keys], delta)
+    return dict(state, **dict(zip(keys, moved)))
+
+
+def migration_bytes(old: FlatPlan, new: FlatPlan,
+                    bytes_per_element: int = 12) -> int:
+    """Bytes that actually cross shards (master copy + both Adam moments)."""
+    return plan_migration_bytes(old, new, bytes_per_element)

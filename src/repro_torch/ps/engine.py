@@ -1,0 +1,563 @@
+"""Service-tick engine: batched multi-job aggregation with bounded
+staleness, over one flat shared space (PyTorch).
+
+The counterpart of ``repro.ps.engine.ServiceTickEngine``:
+
+  submit_push  a job pushes its packed gradient into its bounded per-job
+               queue and gets a :class:`PushFuture`; nothing applies yet
+  tick         the HEAD push of every pending job applies in ONE launch of
+               the multi-job Adam kernel (K1), written in place into the
+               shared flat/mu/nu; below ``min_batch_jobs`` pending jobs
+               each job's push goes through the same applier alone
+  pull         a job reads its own lanes; a job ``max_staleness`` steps
+               ahead of the service forces ticks first
+
+Block exclusivity makes the batched pass a pure execution-order change:
+bit-exact with K sequential per-job block steps.  Replans are stall-free:
+only the jobs a :class:`~repro_torch.ps.elastic.MigrationDelta` touches
+are drained before the state migrates; untouched jobs keep their queues,
+whose pushes are re-tagged across a per-push epoch fence.
+
+Fault tolerance: every ``snapshot_interval`` applying ticks the engine
+CLONES the state (appliers write in place, so a snapshot that aliased
+live state would silently change) and logs the pushes applied since; a
+failed apply restores a clone of the snapshot and replays the log, and
+``max_apply_retries`` consecutive failures quarantine the engine.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import host_to_device
+from ..kernels.agg_adam import ops as agg_ops
+from .faults import HEALTHY, QUARANTINED, EngineQuarantinedError, RetryPolicy
+from .plan import FlatPlan
+from .runtime import _not_in_slice, _pack_slots, _unpack_slots
+
+__all__ = ["PushFuture", "ServiceTickEngine", "TickStats"]
+
+
+class PushFuture:
+    """Handle for one submitted push; resolves when a tick applies it.  A
+    push dropped without applying is CANCELLED: ``result()`` raises
+    instead of forcing ticks forever."""
+
+    __slots__ = ("job_id", "_engine", "_done", "_step", "_cancelled")
+
+    def __init__(self, job_id: str, engine):
+        self.job_id = job_id
+        self._engine = engine
+        self._done = False
+        self._step = None
+        self._cancelled = None  # str reason once cancelled
+
+    def done(self) -> bool:
+        return self._done
+
+    def cancelled(self) -> bool:
+        return self._cancelled is not None
+
+    def result(self, timeout: Optional[float] = None) -> int:
+        """Force service ticks until applied; returns the job's 1-based
+        step count as of this push.  ``timeout`` (seconds, wall clock)
+        raises ``TimeoutError`` at the deadline; a quarantined engine
+        raises its :class:`EngineQuarantinedError` out of ``tick()``."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + float(timeout))
+        while not self._done:
+            if self._cancelled is not None:
+                raise RuntimeError(
+                    f"push for job {self.job_id!r} will never apply: "
+                    f"{self._cancelled}")
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"push for job {self.job_id!r} still unapplied after "
+                    f"{timeout} s")
+            if self._engine.tick() == 0 and not self._done:
+                stall = self._engine._stall_error(self.job_id)
+                if stall is not None:
+                    raise stall
+        return self._step
+
+    def _resolve(self, step: int) -> None:
+        if not self._done:
+            self._done = True
+            self._step = int(step)
+
+    def _cancel(self, reason: str) -> None:
+        if not self._done and self._cancelled is None:
+            self._cancelled = reason
+
+
+@dataclass
+class TickStats:
+    """Engine counters: how batched the service actually ran.  The fields
+    are the reference's, so the two packages' counters compare directly;
+    those of parts not ported yet stay 0."""
+
+    n_ticks: int = 0  # batched passes executed
+    n_applied: int = 0  # pushes applied across all ticks
+    n_launches: int = 0  # applier launches (the single-launch gauge)
+    n_forced_staleness: int = 0  # ticks forced by a pull at the bound
+    n_forced_capacity: int = 0  # ticks forced by a full push queue
+    n_forced_replan: int = 0  # ticks forced to drain TOUCHED jobs on a replan
+    n_per_job_dispatch: int = 0  # ticks dispatched as per-job passes (< K_min)
+    n_replans: int = 0  # plan changes the engine rode through
+    n_retagged: int = 0  # untouched pushes carried across a replan (fence)
+    n_snapshots: int = 0  # last-good state copies taken (rollback anchors)
+    n_rollbacks: int = 0  # failed applies recovered by snapshot restore
+    n_replayed: int = 0  # applied pushes re-queued for replay by rollbacks
+    n_quarantines: int = 0  # lanes that exhausted retries and stopped
+    n_fleet_fallbacks: int = 0  # (sharded engine, not ported yet)
+    n_lease_expirations: int = 0  # (leases, not ported yet)
+    push_bytes_raw: int = 0  # fp32 bytes of every submitted push
+    push_bytes_wire: int = 0  # same pushes on the wire (fp32: equal)
+    n_full_pulls: int = 0  # whole-slice pulls
+    n_diff_pulls: int = 0  # (versioned pulls, not ported yet)
+    pull_bytes_wire: int = 0  # pull payload bytes actually shipped
+    pull_bytes_full: int = 0  # what the same pulls cost as full pulls
+
+    @property
+    def mean_batch(self) -> float:
+        """Mean jobs applied per tick."""
+        if not self.n_ticks:
+            return 0.0
+        return self.n_applied / self.n_ticks
+
+
+def _copy_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep copy of one state dict with every tensor CLONED: appliers write
+    the live buffers in place, so a snapshot (or a restore) that aliased
+    them would change under the next tick."""
+    out = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+           for k, v in state.items()}
+    if "counts" in out:
+        out["counts"] = dict(out["counts"])
+    return out
+
+
+# ------------------------------------------------ shared applier building
+def _flat_job_hp(info) -> Tuple[float, float, float, float]:
+    """(lr, b1, b2, eps) of one flat-runtime job (Adam knobs ride in
+    ``step_opts``)."""
+    so = info["step_opts"]
+    return (float(info["lr"]), float(so.get("b1", 0.9)),
+            float(so.get("b2", 0.999)), float(so.get("eps", 1e-8)))
+
+
+def _fused_tables(layouts, infos, hp_of):
+    """The tables one fused multi-job apply needs: the concatenated
+    owned-block index table, per-entry block counts, and per-entry
+    ``(lr, b1, b2, eps)`` columns."""
+    block_idx = np.concatenate([l.blocks.astype(np.int32) for l in layouts])
+    job_sizes = tuple(int(l.blocks.size) for l in layouts)
+    lr, b1, b2, eps = zip(*(hp_of(i) for i in infos))
+    return block_idx, job_sizes, (lr, b1, b2, eps)
+
+
+def _fused_state_update(state, gs, counts, *, block, block_idx, job_slot,
+                        job_sizes, hps):
+    """ONE fused launch over one state dict: aggregation + Adam + the
+    block writes for flat/mu/nu, in place.  ``gs`` is the per-entry packed
+    gradient sequence, concatenated every tick as the reference does."""
+    lr, b1, b2, eps = hps
+    agg_ops.multi_job_adam_update_fused(
+        state["flat"], gs, state["mu"], state["nu"], counts,
+        block_idx=block_idx, job_slot=job_slot, job_sizes=job_sizes,
+        block=block, lr=lr, b1=b1, b2=b2, eps=eps, wd=0.0)
+    return state
+
+
+class ServiceTickEngine:
+    """Batched executor for one :class:`ServiceRuntime`'s shared state.
+
+    Created via :meth:`ServiceRuntime.attach_engine`.  The engine owns the
+    per-job push queues and the appliers (with their block tables on the
+    device); the runtime owns plan + state and migrates them on replans,
+    draining this engine's touched jobs first.
+    """
+
+    MAX_APPLIERS = 32  # appliers per plan (one per pending-job subset)
+
+    def __init__(self, runtime, *, max_staleness: int = 1,
+                 queue_capacity: Optional[int] = None,
+                 min_batch_jobs: int = 3, snapshot_interval: int = 8,
+                 max_apply_retries: int = 1, fault_injector=None,
+                 retry_policy=None, lease_interval: Optional[float] = None):
+        if max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+        if snapshot_interval < 0:
+            raise ValueError(
+                f"snapshot_interval must be >= 0 (0 disables rollback "
+                f"recovery), got {snapshot_interval}")
+        if lease_interval is not None:
+            raise _not_in_slice("leases (lease_interval)", "9")
+        self.runtime = runtime
+        self.max_staleness = int(max_staleness)
+        self.queue_capacity = (self.max_staleness + 1 if queue_capacity is None
+                               else int(queue_capacity))
+        if self.queue_capacity < 1:
+            raise ValueError("queue_capacity must be >= 1")
+        # Below this many pending jobs a tick applies each job's push on
+        # its own (identical result: disjoint blocks commute).
+        self.min_batch_jobs = int(min_batch_jobs)
+        self.snapshot_interval = int(snapshot_interval)
+        if retry_policy is None:
+            retry_policy = RetryPolicy(max_retries=int(max_apply_retries))
+        self.retry_policy = retry_policy
+        self.max_apply_retries = int(retry_policy.max_retries)
+        self.fault_injector = fault_injector
+        self.stats = TickStats()
+        self.health = HEALTHY
+        self.quarantine_error: Optional[EngineQuarantinedError] = None
+        self._snapshot = None  # (state clone, counts-mirror copy)
+        self._snapshot_log: List[Tuple] = []  # (job, packed, fut) applied
+        self._ticks_since_snapshot = 0
+        self._failures = 0  # consecutive failed applies
+        self._epoch = 0  # bumped per plan change; fences queued pushes
+        self._queues: Dict[str, deque] = {}
+        # Host mirror of state["counts"]: futures resolve from it.
+        self._counts: Dict[str, int] = {}
+        # Per-plan caches, invalidated on replans.
+        self._appliers: Dict[Tuple[str, ...], Callable] = {}
+        self._rows: Dict[str, torch.Tensor] = {}  # owned blocks on device
+
+    # ------------------------------------------------------------- plumbing
+    @property
+    def plan(self) -> Optional[FlatPlan]:
+        return self.runtime.plan
+
+    def _queue(self, job_id: str) -> deque:
+        if job_id not in self.runtime._jobs:
+            raise ValueError(f"unknown job {job_id!r}: not registered with "
+                             f"the runtime (have {sorted(self.runtime._jobs)})")
+        if job_id not in self._counts:
+            self._counts[job_id] = int(self.runtime.state["counts"][job_id])
+        return self._queues.setdefault(job_id, deque())
+
+    def outstanding(self, job_id: str) -> int:
+        """Pushes submitted by the job but not yet applied by a tick."""
+        q = self._queues.get(job_id)
+        return len(q) if q else 0
+
+    def quiesce_for_replan(self, touched) -> int:
+        """Drain ONLY the touched jobs' queues ahead of a migration: their
+        pushes apply against the OLD plan.  Returns pushes applied."""
+        applied = 0
+        while True:
+            pending = [j for j in touched if self._queues.get(j)]
+            if not pending:
+                return applied
+            self.stats.n_forced_replan += 1
+            applied += self.tick(only=pending)
+
+    def _on_plan_change(self, touched=None) -> None:
+        """Replan landed: drop the snapshot (it holds the old geometry) and
+        what the new plan breaks.  ``touched=None`` (full quiesce) requires
+        every queue empty and drops every applier; with a delta's touched
+        set only their appliers go, and untouched jobs' queued pushes are
+        re-tagged to the new epoch."""
+        self._epoch += 1
+        self.stats.n_replans += 1
+        self._snapshot = None
+        self._snapshot_log = []
+        self._ticks_since_snapshot = 0
+        if touched is None:
+            if any(self._queues.values()):
+                raise RuntimeError("replan with queued pushes: the runtime "
+                                   "must drain the engine first")
+            self._appliers.clear()
+            self._rows.clear()
+            return
+        touched = set(touched)
+        for j in touched:
+            if self._queues.get(j):
+                raise RuntimeError(
+                    f"replan with queued pushes for TOUCHED job {j!r}: "
+                    f"quiesce_for_replan must drain it first")
+        for j, q in self._queues.items():
+            if q:  # untouched by construction: carry across the fence
+                self.stats.n_retagged += len(q)
+                self._queues[j] = deque(
+                    (packed, fut, self._epoch) for packed, fut, _ in q)
+        for j in touched:
+            self._rows.pop(j, None)
+        self._appliers = {k: v for k, v in self._appliers.items()
+                          if not touched.intersection(k)}
+
+    def _forget_job(self, job_id: str) -> None:
+        q = self._queues.pop(job_id, None)
+        if q:
+            for _, fut, _ in q:
+                if fut is not None:
+                    fut._cancel("job removed from the runtime with this "
+                                "push still queued (drain was bypassed)")
+        self._snapshot_log = [e for e in self._snapshot_log
+                              if e[0] != job_id]
+        self._counts.pop(job_id, None)
+        self._rows.pop(job_id, None)
+        self._appliers = {k: v for k, v in self._appliers.items()
+                          if job_id not in k}
+
+    # ------------------------------------------------------------ data path
+    def _owned_rows(self, job_id: str) -> torch.Tensor:
+        rows = self._rows.get(job_id)
+        if rows is None:
+            rows = host_to_device(self.plan.job_layout(job_id).blocks,
+                                  self.runtime.device, torch.int64)
+            self._rows[job_id] = rows
+        return rows
+
+    def _pull_packed(self, job_id: str) -> torch.Tensor:
+        """The job's packed lanes as a NEW tensor (never live state)."""
+        layout = self.plan.job_layout(job_id)
+        flat = self.runtime.state["flat"]
+        if layout.covers_all:
+            return flat.clone()
+        return flat.view(-1, layout.block)[self._owned_rows(job_id)].reshape(-1)
+
+    def pull(self, job_id: str, since_version=None):
+        """The job's current parameters (a tree of copies).  A job
+        ``max_staleness`` steps ahead of the service forces ticks first."""
+        if since_version is not None:
+            raise _not_in_slice("versioned pulls (since_version, PullDiff)",
+                                "6")
+        if self.health == QUARANTINED:
+            raise self.quarantine_error
+        self._queue(job_id)  # validates the job id
+        while self.outstanding(job_id) > self.max_staleness:
+            self.stats.n_forced_staleness += 1
+            self.tick()
+        layout = self.plan.job_layout(job_id)
+        self.stats.n_full_pulls += 1
+        self.stats.pull_bytes_wire += 4 * layout.packed_len
+        self.stats.pull_bytes_full += 4 * layout.packed_len
+        return _unpack_slots(layout, self._pull_packed(job_id),
+                             self.runtime._jobs[job_id]["abstract"])
+
+    def submit_push(self, job_id: str, grads) -> PushFuture:
+        """Queue a job's gradient tree for the next tick; a full queue
+        first forces ticks until a slot frees up."""
+        q = self._queue(job_id)
+        while len(q) >= self.queue_capacity:
+            self.stats.n_forced_capacity += 1
+            self.tick()
+        packed = _pack_slots(self.plan.job_layout(job_id), grads)
+        return self.submit_packed(job_id, packed.to(self.runtime.device))
+
+    def submit_packed(self, job_id: str, packed: torch.Tensor) -> PushFuture:
+        """Queue an ALREADY-PACKED job-local float32 gradient vector."""
+        q = self._queue(job_id)
+        while len(q) >= self.queue_capacity:
+            self.stats.n_forced_capacity += 1
+            self.tick()
+        return self._enqueue(q, job_id, packed)
+
+    def _enqueue(self, q: deque, job_id: str, packed) -> PushFuture:
+        fut = PushFuture(job_id, self)
+        n = int(packed.numel())
+        self.stats.push_bytes_raw += 4 * n
+        self.stats.push_bytes_wire += 4 * n
+        action = ("deliver" if self.fault_injector is None
+                  else self.fault_injector.on_push(job_id, None))
+        if action != "drop":
+            q.append((packed, fut, self._epoch))
+            if action == "duplicate":
+                q.append((packed, None, self._epoch))
+        return fut
+
+    def step(self, job_id: str, batch) -> Dict[str, Any]:
+        """One engine-mode iteration: pull (staleness-bounded), compute
+        loss and gradients, submit the push; ``metrics["future"]`` tracks
+        it."""
+        q = self._queue(job_id)
+        while self.outstanding(job_id) > self.max_staleness:
+            self.stats.n_forced_staleness += 1
+            self.tick()
+        while len(q) >= self.queue_capacity:
+            self.stats.n_forced_capacity += 1
+            self.tick()
+        layout = self.plan.job_layout(job_id)
+        info = self.runtime._jobs[job_id]
+        params = _unpack_slots(layout, self._pull_packed(job_id),
+                               info["abstract"])
+        grads, loss = torch.func.grad_and_value(info["loss_fn"])(params,
+                                                                 batch)
+        return {"loss": loss,
+                "future": self._enqueue(q, job_id,
+                                        _pack_slots(layout, grads))}
+
+    # ----------------------------------------------------------------- tick
+    def tick(self, only=None) -> int:
+        """One service tick: pop the head push of every pending job (or of
+        the ``only`` subset during a replan quiesce) and apply them, in
+        ONE launch when at least ``min_batch_jobs`` are pending, one per
+        job below that.  Returns the number of jobs applied."""
+        if self.health == QUARANTINED:
+            raise self.quarantine_error
+        pending = [j for j in self.runtime._jobs
+                   if self._queues.get(j) and (only is None or j in only)]
+        if not pending:
+            return 0
+        # Epoch fence: a push packed under another plan epoch must never
+        # reach the apply.
+        for j in pending:
+            if self._queues[j][0][2] != self._epoch:
+                raise RuntimeError(
+                    f"epoch fence: job {j!r} queued a push under plan "
+                    f"epoch {self._queues[j][0][2]} but the engine is at "
+                    f"{self._epoch}; a replan migrated this job's layout "
+                    f"without draining its queue")
+        if 1 < len(pending) < self.min_batch_jobs:
+            groups = [(j,) for j in pending]
+            self.stats.n_per_job_dispatch += 1
+        else:
+            groups = [tuple(pending)]
+        # Refresh the snapshot BEFORE any in-place apply.
+        self._maybe_snapshot()
+        applied = 0
+        for key in groups:
+            heads = [self._queues[j].popleft() for j in key]
+            try:
+                applier = self._appliers.get(key)
+                if applier is None:
+                    applier = self._build_applier(key)
+                    if len(self._appliers) >= self.MAX_APPLIERS:
+                        self._appliers.pop(next(iter(self._appliers)))
+                    self._appliers[key] = applier
+                gs = tuple(packed for packed, _, _ in heads)
+            except BaseException:
+                # Build-time failure: nothing ran, re-queue the heads.
+                for j, head in zip(key, heads):
+                    self._queues[j].appendleft(head)
+                raise
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector.on_apply(None)
+                self.runtime.state = applier(self.runtime.state, gs)
+            except BaseException as exc:
+                # The applier writes in place, so the state may be partly
+                # updated: re-queue the heads, roll back to the snapshot
+                # and replay (or quarantine).  The rollback undoes every
+                # group this tick already applied.
+                for j, head in zip(key, heads):
+                    self._queues[j].appendleft(head)
+                self._handle_apply_failure(exc, key)
+                self.stats.n_ticks += 1
+                return 0
+            self._failures = 0
+            for j, (packed, fut, _) in zip(key, heads):
+                self._counts[j] += 1
+                if fut is not None:
+                    fut._resolve(self._counts[j])
+                self._snapshot_log.append((j, packed, fut))
+            applied += len(key)
+        self.stats.n_ticks += 1
+        self.stats.n_applied += applied
+        self.stats.n_launches += len(groups)
+        self._ticks_since_snapshot += 1
+        return applied
+
+    # ------------------------------------------------------- fault recovery
+    def _maybe_snapshot(self) -> None:
+        """Clone (state, counts mirror) as the rollback anchor, every
+        ``snapshot_interval`` applying ticks, before the in-place apply."""
+        if self.snapshot_interval <= 0:
+            return
+        if (self._snapshot is None
+                or self._ticks_since_snapshot >= self.snapshot_interval):
+            self._snapshot = (_copy_state(self.runtime.state),
+                              dict(self._counts))
+            self._snapshot_log = []
+            self._ticks_since_snapshot = 0
+            self.stats.n_snapshots += 1
+
+    def _rollback(self) -> None:
+        """Install a CLONE of the snapshot (it stays pristine for another
+        rollback) and re-queue the logged pushes in front, per-job order
+        preserved, so later ticks replay the identical sequence."""
+        state_copy, counts_copy = self._snapshot
+        self.runtime.state = _copy_state(state_copy)
+        self._counts = dict(counts_copy)
+        # A replayed future stays done: its result was observable, and the
+        # deterministic replay re-lands the identical update.
+        for j, packed, fut in reversed(self._snapshot_log):
+            self._queues.setdefault(j, deque()).appendleft(
+                (packed, fut, self._epoch))
+            self.stats.n_replayed += 1
+        self._snapshot_log = []
+        self._ticks_since_snapshot = 0
+        self.stats.n_rollbacks += 1
+
+    def _handle_apply_failure(self, exc: BaseException, key) -> None:
+        """Roll back and return (later ticks replay), or quarantine when
+        retries are exhausted or no snapshot exists."""
+        self._failures += 1
+        can_roll = self._snapshot is not None
+        if can_roll and self.retry_policy.should_retry(self._failures):
+            self.retry_policy.backoff(self._failures)
+            self._rollback()
+            return
+        if can_roll:
+            self._rollback()  # leave last-good state installed
+        self.health = QUARANTINED
+        self.quarantine_error = EngineQuarantinedError(
+            shard_id=None, tick=self.stats.n_ticks, job_ids=key,
+            original=exc)
+        self.stats.n_quarantines += 1
+        raise self.quarantine_error from exc
+
+    def _stall_error(self, job_id: str) -> Optional[Exception]:
+        if self.health == QUARANTINED:
+            return self.quarantine_error
+        if self._queues.get(job_id):
+            return None
+        return RuntimeError(
+            f"push for job {job_id!r} can never resolve: no queued push "
+            f"remains for it (dropped in transit?)")
+
+    def drain(self, only=None) -> int:
+        """Tick until every (selected) queue is empty; returns pushes
+        applied."""
+        applied = 0
+        while True:
+            n = self.tick(only=only)
+            applied += n
+            if n:
+                continue
+            if not any(q for j, q in self._queues.items()
+                       if only is None or j in only):
+                return applied
+
+    def _build_applier(self, job_ids: Tuple[str, ...]) -> Callable:
+        """The batched apply for one combination of pending jobs: its
+        block table and job-slot map go to the device once, and each call
+        is ONE launch of kernel K1 writing flat/mu/nu in place."""
+        plan = self.plan
+        layouts = [plan.job_layout(j) for j in job_ids]
+        infos = [self.runtime._jobs[j] for j in job_ids]
+        block_idx, job_sizes, hps = _fused_tables(layouts, infos,
+                                                  _flat_job_hp)
+        device = self.runtime.device
+        job_slot = np.repeat(np.arange(len(job_sizes), dtype=np.int32),
+                             np.asarray(job_sizes, np.int64))
+        block_idx_t = host_to_device(block_idx, device, torch.int32)
+        job_slot_t = host_to_device(job_slot, device, torch.int32)
+        block = plan.block_align
+
+        def apply(state, gs):
+            counts = [state["counts"][j] + 1 for j in job_ids]
+            state = _fused_state_update(
+                state, gs, counts, block=block, block_idx=block_idx_t,
+                job_slot=job_slot_t, job_sizes=job_sizes, hps=hps)
+            return dict(state, counts=dict(
+                state["counts"], **dict(zip(job_ids, counts))))
+
+        return apply
