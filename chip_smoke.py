@@ -12,14 +12,27 @@ the paper workloads' full tensor inventories:
   c. AWD-LM leaves: another delta replan; 8 ticks;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
-     with the block kernel.
+     with the block kernel;
+
+and, after the service's state is freed, training of Qwen1.5-0.5B at its
+published config (24 layers, d_model 1024, vocab 151,936, bf16; batch 8
+x seq 512 from a repeating synthetic corpus; seeded random weights):
+
+  e. 10 steps of ``make_train_step`` with ``adam(3e-4, fused=True)``: one
+     launch of the dense Adam kernel per parameter leaf per step;
+  f. 5 steps of the single-job parameter-server step
+     (``build_flat_plan`` over 2 shards, ``make_ps_train_step`` with
+     ``job_id=None`` and ``fused_kernel=True``): one launch per step over
+     the whole float32 flat space.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
 against the full-gather oracle; the last tick of each of phases a-c
 against the plain multi-job update; one block step of phase d against
-the plain masked step.  Launch counters are set to 0 before each phase and read after
-it.  Any failed check raises.
+the plain masked step; one fused step of phase e against the unfused
+optimizer's step; the first step of phase f against the same step with
+the plain ``_adam_math``.  Launch counters are set to 0 before each phase
+and read after it.  Any failed check raises.
 
 Output: per-phase lines, one JSON line of kernels (time, bound, plain
 and library times, launches on the main path), the card's name and power
@@ -52,6 +65,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 ADAM_FLOPS_PER_LANE = 14  # mu 3, nu 4, bias corrections 2, update 5
 ULP_BUDGET = 1  # plain vs kernel: same operation order, correctly rounded
+QWEN_BATCH, QWEN_SEQ, QWEN_LR = 8, 512, 3e-4
 
 
 def _import_port():
@@ -72,6 +86,12 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a - b).abs().max()) if a.numel() else 0
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32 or bfloat16)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -80,8 +100,11 @@ def sync(device):
     torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device, reps=20, warmup=3) -> float:
-    """Median of ``reps`` single-launch times from CUDA events."""
+def time_ms(fn, device, reps=10, warmup=3, inner=5) -> float:
+    """Per-call time: the median over ``reps`` CUDA-event windows of
+    ``inner`` back-to-back calls.  Back to back, the host's work for the
+    next call overlaps the device's work for this one, so a wrapper's
+    host time counts only where it exceeds its kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize(device)
@@ -90,10 +113,11 @@ def time_ms(fn, device, reps=20, warmup=3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -514,6 +538,245 @@ def mlp_phase(device, wrappers):
     return counts
 
 
+# ------------------------------------------------------ the Qwen phases
+def qwen_batches(cfg, n, seed, device):
+    """``n`` batches of 8 x 512 rows of a repeating 64-row synthetic
+    corpus, labels shifted by one with the last masked (as
+    examples/train_lm_e2e.py draws them), on the device."""
+    rng = np.random.default_rng(seed)
+    corpus = rng.integers(0, cfg.vocab, size=(64, QWEN_SEQ), dtype=np.int32)
+    out = []
+    for _ in range(n):
+        toks = corpus[rng.integers(0, corpus.shape[0], size=QWEN_BATCH)]
+        labels = np.concatenate(
+            [toks[:, 1:], -np.ones((QWEN_BATCH, 1), np.int32)], axis=1)
+        out.append({"tokens": torch.from_numpy(toks).to(device),
+                    "labels": torch.from_numpy(labels).to(device)})
+    return out
+
+
+def clone_train_state(state):
+    """A copy of ``{"params", "opt": AdamState}`` sharing no buffer."""
+    from repro_torch.tree import tree_map
+
+    opt = state["opt"]
+    return {"params": tree_map(torch.clone, state["params"]),
+            "opt": opt._replace(mu=tree_map(torch.clone, opt.mu),
+                                nu=tree_map(torch.clone, opt.nu))}
+
+
+def timed_steps(step, state, batches, device):
+    """Run ``step`` over ``batches``; host time of each to a synchronize
+    and each loss (reading it synchronizes too)."""
+    times, losses = [], []
+    for b in batches:
+        sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times, losses
+
+
+def check_losses(phase, losses):
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase {phase}: losses not finite and falling: "
+                             f"{losses}")
+
+
+def qwen_line(phase, times, losses, counts, peak, extra=""):
+    tok = QWEN_BATCH * QWEN_SEQ
+    med = statistics.median(times)
+    return (f"phase {phase}: steps={len(times)} step_ms_median={med:.2f} "
+            f"step_ms_first={times[0]:.2f} tokens_per_s={tok / med * 1e3:.0f}"
+            f" loss_first={losses[0]:.4f} loss_last={losses[-1]:.4f} "
+            f"counters={counts} max_memory_allocated_gb={peak / 1e9:.2f}"
+            f"{extra}")
+
+
+def optimizer_phase(cfg, device, wrappers):
+    """Phase e: ``make_train_step`` with the fused optimizer for 10 steps,
+    then one fused and one unfused step from one state, compared.
+    Returns (counters, the trained state, seconds)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.tree import tree_leaves_by_key, tree_map
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = tf.init_params(cfg, gen, device)
+    opt = adam(QWEN_LR, fused=True)
+    step = tf.make_train_step(cfg, opt)
+    state = {"params": params, "opt": opt.init(params)}
+    batches = qwen_batches(cfg, 11, 0, device)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(step, state, batches[:10], device)
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(tree_leaves_by_key(params))
+    if counts["agg_adam_dense"] != 10 * n_leaves:
+        raise AssertionError(f"phase e: {counts['agg_adam_dense']} launches "
+                             f"of K5 for 10 steps of {n_leaves} leaves")
+    check_losses("e", losses)
+    # The optimizer alone on the trained state (14 K5 launches).
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=device, dtype=t.dtype)
+                     * 1e-3, state["params"])
+    c = clone_train_state(state)
+    opt_ms = time_ms(lambda: opt.step(c["params"], grads, c["opt"]), device)
+    del c, grads
+    # One fused and one unfused step (launch.train's default adam(3e-4))
+    # from the same state and batch.
+    unfused = adam(QWEN_LR)
+    st_u, st_f = clone_train_state(state), clone_train_state(state)
+    st_u, _ = tf.make_train_step(cfg, unfused)(st_u, batches[10])
+    st_f, _ = step(st_f, batches[10])
+    diff, lanes, worst = 0.0, 0, 0.0
+    for k, pf in tree_leaves_by_key(st_f["params"]).items():
+        pu = tree_leaves_by_key(st_u["params"])[k]
+        d = (pf.float() - pu.float()).abs()
+        # 2 x lr: a gradient lane whose sign the two runs see differently;
+        # one bf16 ulp (2^-7 relative at most): the two groupings round
+        # the float32 update to bf16 on either side of a boundary.
+        tol = 2 * QWEN_LR + 2.0 ** -7 * pu.float().abs()
+        worst = max(worst, float((d / tol).max()))
+        diff = max(diff, float(d.max()))
+        lanes += int((d > 0).sum())
+    if worst > 1.0:
+        raise AssertionError(f"phase e: fused vs unfused step differ by "
+                             f"{diff} ({worst:.3f} x the tolerance)")
+    del st_u, st_f
+    seconds = time.perf_counter() - t_start
+    print(qwen_line("e (Qwen1.5-0.5B, make_train_step, fused adam)", times,
+                    losses, counts, peak,
+                    f" k5_per_step={counts['agg_adam_dense'] // 10} "
+                    f"optimizer_step_ms={opt_ms:.3f} fused_vs_unfused_step:"
+                    f" max_abs={diff:.3e} lanes_differing={lanes} "
+                    f"of_tolerance={worst:.4f} seconds={seconds:.1f}"),
+          flush=True)
+    return counts, state
+
+
+def ps_phase(cfg, device, wrappers):
+    """Phase f: the single-job PS step (K5 over the whole flat space) for
+    5 steps; its first step held against the plain ``_adam_math`` step.
+    Returns (counters, the trained state, the plan)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.ps.runtime import (build_flat_plan, init_ps_state,
+                                        make_ps_train_step)
+
+    t_start = time.perf_counter()
+    abstract = tf.init_params(cfg, device="meta")
+    plan = build_flat_plan(abstract, n_shards=2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    state = init_ps_state(plan, tf.init_params(cfg, gen, device))
+    loss = lambda p, b: tf.loss_fn(cfg, p, b)  # noqa: E731
+    step_k = make_ps_train_step(loss, plan, abstract, lr=QWEN_LR,
+                                fused_kernel=True)
+    step_p = make_ps_train_step(loss, plan, abstract, lr=QWEN_LR,
+                                fused_kernel=False)
+    batches = qwen_batches(cfg, 5, 1, device)
+    want, _ = step_p({**state_clone(state), "count": state["count"]},
+                     batches[0])
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(step_k, state, batches[:1], device)
+    ulp = max(ulp_diff(state[k], want[k]) for k in ("flat", "mu", "nu"))
+    del want
+    if ulp > ULP_BUDGET:
+        raise AssertionError(f"phase f: K5 step vs plain step: {ulp} ulp")
+    torch.cuda.reset_peak_memory_stats()  # the oracle's copy is gone
+    state, t2, l2 = timed_steps(step_k, state, batches[1:], device)
+    times, losses = times + t2, losses + l2
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    if counts["agg_adam_dense"] != 5:
+        raise AssertionError(f"phase f: {counts['agg_adam_dense']} launches "
+                             f"of K5 for 5 steps")
+    check_losses("f", losses)
+    print(qwen_line(
+        "f (Qwen1.5-0.5B, single-job PS step, fused_kernel=True)", times,
+        losses, counts, peak,
+        f" (peak over steps 2-5) flat_len={plan.total_len} shards="
+        f"{plan.n_shards} "
+        f"first_step_vs_plain_max_ulp={ulp} seconds="
+        f"{time.perf_counter() - t_start:.1f}"), flush=True)
+    return counts, state, plan
+
+
+def k5_entry(p, g, mu, nu, device, what):
+    """K5 on clones of one real buffer set: bit for bit against its plain
+    version, then timed beside the plain version and
+    ``torch.optim.Adam(fused=True)`` on the same tensors."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.agg_adam import ref as agg_ref
+
+    count, kw = 11, dict(lr=QWEN_LR, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
+    hp = agg_ops.multi_job_hp([count], **kw).to(device)
+    kern = [t.clone() for t in (p, mu, nu)]
+    agg_ops.aggregate_adam(kern[0], g, kern[1], kern[2], count, **kw)
+    plain = [t.clone() for t in (p, mu, nu)]
+    agg_ref.aggregate_adam_plain(plain[0], g, plain[1], plain[2], hp)
+    err = max(max_abs(a.float(), b.float()) for a, b in zip(kern, plain))
+    if not all(bits_equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError(f"K5 ({what}) differs from its plain version: "
+                             f"max abs {err}")
+    del plain
+    ms = time_ms(lambda: agg_ops.aggregate_adam(
+        kern[0], g, kern[1], kern[2], count, **kw), device)
+    plain_ms = time_ms(lambda: agg_ref.aggregate_adam_plain(
+        kern[0], g, kern[1], kern[2], hp), device, reps=3, warmup=1)
+    del kern
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.clone()
+    lib = torch.optim.Adam([param], lr=QWEN_LR, fused=True)
+    library_ms = time_ms(lib.step, device)
+    del param, lib
+    n = p.numel()
+    nbytes = n * (2 * p.element_size() + g.element_size() + 16)
+    b, by = bound_ms(nbytes, n * ADAM_FLOPS_PER_LANE)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=library_ms, max_abs_err=err, max_ulp=0,
+                shape=f"{what}: N={n} p {str(p.dtype)[6:]} g "
+                      f"{str(g.dtype)[6:]}")
+
+
+def k5_small_checks(device):
+    """K5 on (W=4, N) gradients, a ragged N, and an unaligned bf16 view
+    (the kernel's scalar path), against its plain version bit for bit."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.agg_adam import ref as agg_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    n = (1 << 20) + 3
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    hp = agg_ops.multi_job_hp([3], **kw).to(device)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    buf = r(n + 1).bfloat16()
+    cases = {"W=4 f32 p, f32 g": (r(n), r(4, n)),
+             "W=4 bf16 p, bf16 g": (r(n).bfloat16(), r(4, n).bfloat16()),
+             "unaligned bf16 p": (buf[1:], r(n).bfloat16())}
+    for name, (p, g) in cases.items():
+        mu, nu = r(n) * 0.1, r(n).abs() * 0.01
+        kern = [t.clone() for t in (p, mu, nu)]
+        plain = [t.clone() for t in (p, mu, nu)]
+        if name.startswith("unaligned"):  # keep the odd offset
+            kern[0] = torch.cat([buf[:1], p])[1:]
+        agg_ops.aggregate_adam(kern[0], g, kern[1], kern[2], 3, **kw)
+        agg_ref.aggregate_adam_plain(plain[0], g, plain[1], plain[2], hp)
+        if not all(bits_equal(a, b) for a, b in zip(kern, plain)):
+            raise AssertionError(f"K5 {name}: differs from its plain version")
+    print(f"K5 small checks (N={n}): {', '.join(cases)}: bit for bit",
+          flush=True)
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -553,6 +816,7 @@ def main() -> int:
         "agg_adam_blocks": agg_ops.aggregate_adam_blocks,
         "relayout_stage": rl_ops.relayout_stage,
         "relayout_scatter": rl_ops.relayout_scatter,
+        "agg_adam_dense": agg_ops.aggregate_adam,
     }
     totals = dict.fromkeys(wrappers, 0)
 
@@ -635,33 +899,73 @@ def main() -> int:
     _require(counts, ("agg_adam_multijob_fused", "agg_adam_blocks"), "d")
     add_totals(counts)
 
+    # ---- phases e and f: Qwen1.5-0.5B training, full width and depth
+    from repro_torch.configs import qwen1_5_0_5b
+
+    torch.cuda.empty_cache()
+    cfg = qwen1_5_0_5b.config()
+    if scale != 1.0:
+        cfg = qwen1_5_0_5b.smoke_config()
+    print(f"Qwen config: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} vocab={cfg.vocab} dtype={cfg.dtype} params="
+          f"{cfg.param_count} batch={QWEN_BATCH}x{QWEN_SEQ}", flush=True)
+    counts_e, state = optimizer_phase(cfg, device, wrappers)
+    _require(counts_e, ("agg_adam_dense",), "e")
+    add_totals(counts_e)
+    embed = state["params"]["embed"]
+    entries["agg_adam_dense:embed"] = k5_entry(
+        embed, torch.randn(embed.shape, device=device,
+                           dtype=embed.dtype) * 1e-3,
+        state["opt"].mu["embed"], state["opt"].nu["embed"], device,
+        "optimizer path, embedding leaf")
+    del state, embed
+    torch.cuda.empty_cache()
+    counts_f, state, plan = ps_phase(cfg, device, wrappers)
+    _require(counts_f, ("agg_adam_dense",), "f")
+    add_totals(counts_f)
+    entries["agg_adam_dense:ps_flat"] = k5_entry(
+        state["flat"], torch.randn(state["flat"].shape, device=device) * 1e-3,
+        state["mu"], state["nu"], device, "single-job PS flat space")
+    del state
+    torch.cuda.empty_cache()
+    k5_small_checks(device)
+
     # ---- report
+    k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
+    rl_src = "src/repro_torch/kernels/relayout/csrc/relayout.cu"
+    # entry -> (source, TPU kernel it replaces, launches on the main path)
     meta = {
         "agg_adam_multijob_fused": (
-            "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu",
-            "src/repro/kernels/agg_adam/kernel.py:214"),
+            k1_src, "src/repro/kernels/agg_adam/kernel.py:214",
+            totals["agg_adam_multijob_fused"]),
         "agg_adam_blocks": (
-            "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu",
-            "src/repro/kernels/agg_adam/kernel.py:124"),
+            k1_src, "src/repro/kernels/agg_adam/kernel.py:124",
+            totals["agg_adam_blocks"]),
         "relayout_stage": (
-            "src/repro_torch/kernels/relayout/csrc/relayout.cu",
-            "src/repro/kernels/relayout/kernel.py:48"),
+            rl_src, "src/repro/kernels/relayout/kernel.py:48",
+            totals["relayout_stage"]),
         "relayout_scatter": (
-            "src/repro_torch/kernels/relayout/csrc/relayout.cu",
-            "src/repro/kernels/relayout/kernel.py:48"),
+            rl_src, "src/repro/kernels/relayout/kernel.py:48",
+            totals["relayout_scatter"]),
+        "agg_adam_dense:embed": (
+            k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
+            counts_e["agg_adam_dense"]),
+        "agg_adam_dense:ps_flat": (
+            k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
+            counts_f["agg_adam_dense"]),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, launches) in meta.items():
         e = entries[name]
-        if totals[name] <= 0:
+        if launches <= 0:
             raise AssertionError(f"{name} never launched on the main path")
         print(f"kernel {name}: {e['shape']} ms={e['ms']:.4f} plain_ms="
               f"{e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
               f"({e['bound_by']}) library_ms={e['library_ms']} max_ulp="
-              f"{e['max_ulp']} launches={totals[name]}", flush=True)
+              f"{e['max_ulp']} launches={launches}", flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": totals[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

@@ -19,12 +19,14 @@ DeviceLike = Union[None, str, torch.device]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda:0`` by default; ``"cpu"`` only when asked for by name."""
+    """``cuda:0`` by default; ``"cpu"`` only when asked for by name
+    (``"meta"`` too: shapes and dtypes, no memory)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+        raise ValueError(f"unsupported device {dev} (expected cuda, cpu "
+                         f"or meta)")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but CUDA is not available; pass "

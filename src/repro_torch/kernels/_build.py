@@ -144,3 +144,4 @@ def check(code: int, what: str) -> None:
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float

@@ -1,10 +1,14 @@
-// Multi-job Adam over a shared block-exclusive flat space, for Hopper (sm_90a).
+// Adam kernels of the aggregation service, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/agg_adam/kernel.py:
+// Replaces three Pallas TPU kernels of src/repro/kernels/agg_adam/kernel.py:
 //   agg_adam_multijob_fused  <- aggregate_adam_multijob_fused (K1): one
 //       service tick, K jobs' owned blocks updated in place in one launch;
 //   agg_adam_blocks          <- aggregate_adam_blocks (K3): one job's owned
-//       blocks, packed outputs (the per-job block step).
+//       blocks, packed outputs (the per-job block step);
+//   agg_adam_dense           <- aggregate_adam (K5): dense Adam over a whole
+//       (N,) tensor in place, p float32 or bfloat16, gradients (N,) or
+//       (W, N) float32 or bfloat16 (the fused optimizer and the single-job
+//       parameter-server step).
 //
 // Bound: device-memory bandwidth.  Per owned lane the update reads p, mu,
 // nu and W gradient values and writes p, mu, nu: (24 + 4W) bytes for about
@@ -24,8 +28,10 @@
 // kernel and the plain version agree bit for bit.  The W-way gradient sum
 // runs in the fixed order w = 0 .. W-1, as the plain version does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <cstring>
 
 namespace {
 
@@ -150,6 +156,118 @@ __global__ void blocks_kernel(const float* p, int p_packed, const float* g,
                      out_nu + packed, block, threadIdx.x & 31);
 }
 
+// ---- K5: dense Adam.  Bound by bytes like K1: per lane 22 B with bf16
+// p and g (p read and written, g read, mu and nu read and written in
+// fp32), 28 B in fp32, (W - 1) x 2 or 4 B more for W gradient rows.  One
+// thread per 4 consecutive lanes, so a warp streams 128 lanes of every
+// array in one coalesced pass: 16-byte float4 accesses for fp32 arrays
+// and 8-byte (four bf16) accesses for bf16 ones when every buffer is
+// 16-byte aligned (the wrapper checks; a view into a stacked tensor may
+// not be) and, for W > 1, N % 4 == 0.  The tail (N % 4 lanes), and every
+// lane of an unaligned call, take the scalar loop.  No padding copy: the
+// last thread masks the ragged end itself.
+
+template <typename T>
+struct Lane;
+
+template <>
+struct Lane<float> {
+  __device__ static float load(const float* x) { return *x; }
+  __device__ static void store(float* x, float v) { *x = v; }
+  __device__ static float4 load4(const float* x) {
+    return *reinterpret_cast<const float4*>(x);
+  }
+  __device__ static void store4(float* x, float4 v) {
+    *reinterpret_cast<float4*>(x) = v;
+  }
+};
+
+template <>
+struct Lane<__nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* x) {
+    return __bfloat162float(*x);
+  }
+  __device__ static void store(__nv_bfloat16* x, float v) {
+    *x = __float2bfloat16_rn(v);
+  }
+  __device__ static float4 load4(const __nv_bfloat16* x) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(x);
+    __nv_bfloat162 lo, hi;
+    memcpy(&lo, &raw.x, 4);
+    memcpy(&hi, &raw.y, 4);
+    const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static void store4(__nv_bfloat16* x, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    memcpy(&raw.x, &lo, 4);
+    memcpy(&raw.y, &hi, 4);
+    *reinterpret_cast<uint2*>(x) = raw;
+  }
+};
+
+constexpr int kDenseThreads = 256;
+
+template <typename PT, typename GT, bool kVec>
+__global__ void dense_kernel(PT* p, const GT* g, long long n, int w,
+                             float* mu, float* nu, Hp h) {
+  const long long i =
+      ((long long)blockIdx.x * kDenseThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+  if (kVec && i + 4 <= n) {
+    float4 gs = Lane<GT>::load4(g + i);
+    for (int k = 1; k < w; ++k) {
+      const float4 t = Lane<GT>::load4(g + k * n + i);
+      gs.x = __fadd_rn(gs.x, t.x);
+      gs.y = __fadd_rn(gs.y, t.y);
+      gs.z = __fadd_rn(gs.z, t.z);
+      gs.w = __fadd_rn(gs.w, t.w);
+    }
+    const float4 pv = Lane<PT>::load4(p + i);
+    float4 m = *reinterpret_cast<const float4*>(mu + i);
+    float4 v = *reinterpret_cast<const float4*>(nu + i);
+    float4 np;
+    adam_lane(h, pv.x, gs.x, m.x, v.x, np.x);
+    adam_lane(h, pv.y, gs.y, m.y, v.y, np.y);
+    adam_lane(h, pv.z, gs.z, m.z, v.z, np.z);
+    adam_lane(h, pv.w, gs.w, m.w, v.w, np.w);
+    Lane<PT>::store4(p + i, np);
+    *reinterpret_cast<float4*>(mu + i) = m;
+    *reinterpret_cast<float4*>(nu + i) = v;
+  } else {
+    const long long end = i + 4 < n ? i + 4 : n;
+    for (long long j = i; j < end; ++j) {
+      float gj = Lane<GT>::load(g + j);
+      for (int k = 1; k < w; ++k)
+        gj = __fadd_rn(gj, Lane<GT>::load(g + k * n + j));
+      float m = mu[j], v = nu[j], np;
+      adam_lane(h, Lane<PT>::load(p + j), gj, m, v, np);
+      Lane<PT>::store(p + j, np);
+      mu[j] = m;
+      nu[j] = v;
+    }
+  }
+}
+
+template <typename PT, typename GT>
+void launch_dense(void* p, const void* g, long long n, int w, void* mu,
+                  void* nu, const Hp& h, int vec, cudaStream_t s) {
+  const long long quads = (n + 3) / 4;
+  const dim3 grid((unsigned)((quads + kDenseThreads - 1) / kDenseThreads));
+  auto* pp = static_cast<PT*>(p);
+  auto* gp = static_cast<const GT*>(g);
+  auto* mup = static_cast<float*>(mu);
+  auto* nup = static_cast<float*>(nu);
+  if (vec)
+    dense_kernel<PT, GT, true><<<grid, kDenseThreads, 0, s>>>(pp, gp, n, w,
+                                                              mup, nup, h);
+  else
+    dense_kernel<PT, GT, false><<<grid, kDenseThreads, 0, s>>>(pp, gp, n, w,
+                                                               mup, nup, h);
+}
+
 inline unsigned grid_for(long long n_own) {
   return (unsigned)((n_own + kWarpsPerCta - 1) / kWarpsPerCta);
 }
@@ -209,6 +327,26 @@ extern "C" int agg_adam_blocks(const void* p, int p_packed, const void* g,
       blocks_kernel<false><<<grid, cta, 0, s>>>(pf, p_packed, gf, m, w, muf,
                                                 nuf, hpf, bi, n_own, block, op,
                                                 om, on);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int agg_adam_dense(void* p, int p_bf16, const void* g, int g_bf16,
+                              long long n, int w, void* mu, void* nu,
+                              float lr, float b1, float omb1, float b2,
+                              float omb2, float eps, float bc1, float bc2,
+                              float wd, int vec, void* stream) {
+  if (n > 0) {
+    const Hp h{lr, b1, omb1, b2, omb2, eps, bc1, bc2, wd};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (p_bf16 && g_bf16)
+      launch_dense<__nv_bfloat16, __nv_bfloat16>(p, g, n, w, mu, nu, h, vec, s);
+    else if (p_bf16)
+      launch_dense<__nv_bfloat16, float>(p, g, n, w, mu, nu, h, vec, s);
+    else if (g_bf16)
+      launch_dense<float, __nv_bfloat16>(p, g, n, w, mu, nu, h, vec, s);
+    else
+      launch_dense<float, float>(p, g, n, w, mu, nu, h, vec, s);
   }
   return (int)cudaGetLastError();
 }

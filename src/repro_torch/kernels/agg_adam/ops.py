@@ -1,4 +1,4 @@
-"""Wrappers for the multi-job Adam kernels, dispatched by tensor device.
+"""Wrappers for the Adam kernels, dispatched by tensor device.
 
 A CUDA tensor goes through the hand-written kernel in ``csrc/agg_adam.cu``
 (built on first use) or the call raises; a CPU tensor, which the caller
@@ -35,12 +35,17 @@ def _per_job(val: Floats, n_jobs: int) -> Tuple[float, ...]:
     return vals
 
 
-def _bias_corr(count: int, b: float) -> np.float32:
-    """``1 / (1 - b**t)`` in float32, as the reference's scalar XLA
-    computation gives it: the power rounded once to float32 (evaluated in
-    float64 first), then the subtraction and division in float32."""
+def _bias_denom(count: int, b: float) -> np.float32:
+    """``1 - b**t`` in float32, as the reference's scalar XLA computation
+    gives it: the power rounded once to float32 (evaluated in float64
+    first), then the subtraction in float32."""
     pw = np.float32(np.float64(np.float32(b)) ** int(count))
-    return np.float32(1.0) / (np.float32(1.0) - pw)
+    return np.float32(1.0) - pw
+
+
+def _bias_corr(count: int, b: float) -> np.float32:
+    """``1 / (1 - b**t)`` in float32 (the kernels' reciprocal)."""
+    return np.float32(1.0) / _bias_denom(count, b)
 
 
 def multi_job_hp(counts: Sequence[int], *, lr: Floats, b1: Floats = 0.9,
@@ -177,6 +182,65 @@ def aggregate_adam_blocks(p, g, mu, nu, hp, block_idx, *, block: int,
 
 
 aggregate_adam_blocks.launches = 0
+
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def aggregate_adam(p, grads, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
+                   eps=1e-8, wd=0.0):
+    """K5, dense Adam over one whole tensor, IN PLACE: p (any shape,
+    float32 or bfloat16), ``grads`` p-shaped or a (W,)-stack of p-shaped
+    worker rows (float32 or bfloat16, summed in float32), mu/nu float32.
+    ``count`` is the 1-based step (a host int: the bias corrections come
+    from :func:`multi_job_hp`, no device sync).  Returns (p, mu, nu), the
+    same tensors.  The kernel masks the ragged end itself: nothing is
+    padded or copied."""
+    device = p.device
+    if p.dtype not in _FLOATS or grads.dtype not in _FLOATS:
+        raise TypeError(f"p and grads must be float32 or bfloat16, got "
+                        f"{p.dtype} and {grads.dtype}")
+    for name, t in (("mu", mu), ("nu", nu)):
+        _check_f32(name, t, device)
+        if t.shape != p.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != p {tuple(p.shape)}")
+    for name, t in (("p", p), ("grads", grads)):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+    stacked = grads.dim() == p.dim() + 1
+    if grads.shape[int(stacked):] != p.shape:
+        raise ValueError(f"grads must be p-shaped {tuple(p.shape)} or "
+                         f"(W,) + that, got {tuple(grads.shape)}")
+    hp = multi_job_hp([count], lr=lr, b1=b1, b2=b2, eps=eps, wd=wd)
+    if device.type == "cpu":
+        return ref.aggregate_adam_plain(p, grads, mu, nu, hp)
+    stream = _stream(device)
+    fn = _build.entry("agg_adam", "agg_adam_dense",
+                     [_build.P, _build.I32, _build.P, _build.I32, _build.I64,
+                      _build.I32, _build.P, _build.P] + [_build.F32] * 9
+                     + [_build.I32, _build.P])
+    n = p.numel()
+    w = int(grads.shape[0]) if stacked else 1
+    # Vector path: 16-byte aligned buffers and, with W rows, rows that
+    # start on whole groups of 4 lanes (N % 4 == 0); else the scalar loop.
+    vec = _vec_ok(4 if w == 1 else n, p, grads, mu, nu)
+    aggregate_adam.launches += 1
+    _build.check(fn(p.data_ptr(), int(p.dtype == torch.bfloat16),
+                    grads.data_ptr(), int(grads.dtype == torch.bfloat16), n,
+                    w, mu.data_ptr(), nu.data_ptr(), *hp[0, :9].tolist(),
+                    vec, stream),
+                 "agg_adam_dense")
+    return p, mu, nu
+
+
+aggregate_adam.launches = 0
+
+
+def adam_update(p, g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                wd=0.0):
+    """The fused optimizer's per-tensor update (one gradient): K5."""
+    return aggregate_adam(p, g, mu, nu, count, lr=lr, b1=b1, b2=b2, eps=eps,
+                          wd=wd)
 
 
 def scatter_rows(buf: torch.Tensor, packed: torch.Tensor, block_idx,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the multi-job Adam kernels.
+"""Plain PyTorch versions of the Adam kernels.
 
 Each function computes exactly what its CUDA kernel in
 ``csrc/agg_adam.cu`` computes, operation for operation: eager PyTorch runs
@@ -77,3 +77,20 @@ def aggregate_adam_blocks_plain(p, g, mu, nu, hp, block_idx, *, block: int,
         hp, pp, grad_sum(g).view(-1, block), mu.view(-1, block)[rows],
         nu.view(-1, block)[rows])
     return new_p.reshape(-1), new_mu.reshape(-1), new_nu.reshape(-1)
+
+
+def aggregate_adam_plain(p, g, mu, nu, hp):
+    """K5: dense Adam over every lane of p/mu/nu (any shape, contiguous),
+    IN PLACE.  ``g`` is p-shaped or a (W,)-stack of p-shaped rows, float32
+    or bfloat16, summed in float32 in the order w = 0..W-1; p is float32
+    or bfloat16, updated in float32 and rounded once to its dtype."""
+    g32 = g.float()
+    g32 = grad_sum(g32.reshape(g.shape[0], -1) if g.dim() == p.dim() + 1
+                   else g32.reshape(-1))
+    new_p, new_mu, new_nu = adam_rows(
+        hp, p.float().reshape(1, -1), g32.reshape(1, -1), mu.reshape(1, -1),
+        nu.reshape(1, -1))
+    p.copy_(new_p.reshape(p.shape))
+    mu.copy_(new_mu.reshape(mu.shape))
+    nu.copy_(new_nu.reshape(nu.shape))
+    return p, mu, nu

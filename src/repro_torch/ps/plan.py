@@ -29,7 +29,7 @@ class TensorSpec:
 
     key: str  # pytree path key within the job's parameter tree
     shape: Tuple[int, ...]
-    dtype: Any  # numpy-compatible dtype (jnp dtypes accepted)
+    dtype: Any  # numpy dtype; torch.bfloat16 where numpy has none
 
     @property
     def size(self) -> int:
@@ -574,6 +574,22 @@ def plan_migration_bytes(
 
 
 # ----------------------------------------------------------- serialization
+def dtype_name(dtype) -> str:
+    """numpy's name for a segment dtype.  numpy has no bfloat16: the port
+    keeps ``torch.bfloat16`` for it and names it as the reference does."""
+    if str(dtype) == "torch.bfloat16":
+        return "bfloat16"
+    return np.dtype(dtype).name
+
+
+def dtype_from_name(name: str):
+    if name == "bfloat16":
+        import torch
+
+        return torch.bfloat16
+    return np.dtype(name)
+
+
 def plan_to_json(plan: FlatPlan) -> Dict[str, Any]:
     return {
         "n_shards": plan.n_shards,
@@ -587,7 +603,7 @@ def plan_to_json(plan: FlatPlan) -> Dict[str, Any]:
                 "offset": s.offset,
                 "size": s.size,
                 "shape": list(s.shape),
-                "dtype": np.dtype(s.dtype).name,
+                "dtype": dtype_name(s.dtype),
                 "job_id": s.job_id,
                 "tensor_id": s.tensor_id,
             }
@@ -604,7 +620,7 @@ def plan_from_json(obj: Mapping[str, Any]) -> FlatPlan:
             offset=int(s["offset"]),
             size=int(s["size"]),
             shape=tuple(s["shape"]),
-            dtype=np.dtype(s["dtype"]),
+            dtype=dtype_from_name(s["dtype"]),
             job_id=s.get("job_id", "flat"),
             tensor_id=int(s.get("tensor_id", -1)),
         )

@@ -1,13 +1,18 @@
 """Shared-service data plane on one flat parameter space (PyTorch).
 
-The counterpart of ``repro.ps.runtime``, shared-service half.  The
-control plane's compiled :class:`~repro_torch.ps.plan.FlatPlan` lays every
-registered job's tensors into one flat space; a job's step
+The counterpart of ``repro.ps.runtime``.  The control plane's compiled
+:class:`~repro_torch.ps.plan.FlatPlan` lays every registered job's
+tensors into one flat space; a job's step
 
   pull    gathers its owned ``block_align`` blocks (one row gather),
   push    packs its gradients into the same packed domain,
   update  runs Adam on its owned lanes only -- O(job bytes) -- through the
           block kernel K3, and scatters the results back.
+
+The standalone single-job space (:func:`build_flat_plan`,
+:func:`init_ps_state`, ``make_ps_train_step(job_id=None)``) pulls the
+whole tree, pushes the whole float32 gradient and runs the dense kernel
+K5 over every lane.
 
 Parameter trees are nested dicts / lists / tuples of tensors.  Their leaf
 keys are those of the reference (dict keys, sorted, and list indices
@@ -22,16 +27,30 @@ buffers directly, and every value handed to a caller (pulls,
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.assignment import (
+    balanced_shard_assignment,
+    round_robin_shard_assignment,
+)
 from ..core.types import AggTask, JobProfile
 from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
 from ..kernels.agg_adam import ref as agg_ref
-from .plan import FlatPlan, TensorSpec, segment_mask
+from ..tree import (  # noqa: F401  (re-exported for the runtime's users)
+    _leaf_key,
+    _tree_items,
+    _tree_rebuild,
+    abstract_tree,
+    array_to_tensor,
+    tree_leaves_by_key,
+    tree_map,
+    value_and_grad,
+)
+from .plan import FlatPlan, Segment, TensorSpec, segment_mask
 
 _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64,
                 torch.float16: np.float16, torch.int32: np.int32,
@@ -39,59 +58,23 @@ _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64,
 _TORCH_OF_NP = {np.dtype(v): k for k, v in _NP_OF_TORCH.items()}
 
 
-def numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype a TensorSpec stores for a torch dtype, so plans and
-    manifests stay identical to the reference's."""
+def numpy_dtype(dtype: torch.dtype):
+    """The dtype a TensorSpec stores for a torch dtype: numpy's, so plans
+    and manifests stay identical to the reference's.  numpy has no
+    bfloat16, so a bfloat16 leaf keeps ``torch.bfloat16``, which
+    ``plan.dtype_name`` names ``"bfloat16"`` as the reference does."""
+    if dtype == torch.bfloat16:
+        return dtype
     return np.dtype(_NP_OF_TORCH[dtype])
 
 
 def torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
     return _TORCH_OF_NP[np.dtype(dtype)]
 
 
 # ------------------------------------------------------------- pytrees
-def _leaf_key(path) -> str:
-    """Dict keys and list indices joined by ``/`` (``runtime.py:72``)."""
-    return "/".join(str(p) for p in path)
-
-
-def _tree_items(tree, path=()) -> Iterator[Tuple[Tuple, Any]]:
-    """(path, leaf) pairs in JAX's flatten order: dict keys sorted."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _tree_items(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _tree_items(v, path + (i,))
-    else:
-        yield path, tree
-
-
-def tree_leaves_by_key(tree) -> Dict[str, Any]:
-    return {_leaf_key(p): leaf for p, leaf in _tree_items(tree)}
-
-
-def tree_map(fn: Callable[[Any], Any], tree):
-    """Same structure, ``fn(leaf)`` at every leaf."""
-    return _tree_rebuild(tree, lambda key, leaf: fn(leaf))
-
-
-def _tree_rebuild(tree, fn: Callable[[str, Any], Any], path=()):
-    """Same structure, ``fn(leaf_key, leaf)`` at every leaf."""
-    if isinstance(tree, dict):
-        return {k: _tree_rebuild(v, fn, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_rebuild(v, fn, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(_leaf_key(path), tree)
-
-
-def abstract_tree(tree):
-    """Shape/dtype skeleton of a parameter tree (``meta`` tensors)."""
-    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                          device="meta"), tree)
-
-
 def tree_specs(tree) -> List[TensorSpec]:
     """Per-leaf TensorSpecs in flatten order, with numpy dtypes."""
     return [TensorSpec(_leaf_key(path), tuple(leaf.shape),
@@ -100,18 +83,21 @@ def tree_specs(tree) -> List[TensorSpec]:
 
 
 def tree_from_numpy(tree, device) -> Any:
-    """A reference parameter tree (numpy / jax arrays) as torch tensors on
-    ``device``, with the same leaf keys."""
-    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device), tree)
+    """A reference parameter tree (numpy / jax arrays, bfloat16 included)
+    as torch tensors on ``device``, bit for bit, with the same leaf keys."""
+    return tree_map(lambda x: array_to_tensor(x).to(device), tree)
 
 
 def state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
-    """A reference shared state (``flat``/``mu``/``nu`` arrays, per-job
-    ``counts``) as the port's: tensors on ``device``, counts as ints."""
-    out = {k: torch.from_numpy(np.array(v)).to(device)
-           for k, v in state.items() if k != "counts"}
-    out["counts"] = {j: int(np.asarray(c))
-                     for j, c in state.get("counts", {}).items()}
+    """A reference state as the port's: tensors on ``device``, the shared
+    state's per-job ``counts`` and the single-job ``count`` as ints."""
+    out = {k: array_to_tensor(v).to(device)
+           for k, v in state.items() if k not in ("counts", "count")}
+    if "count" in state:
+        out["count"] = int(np.asarray(state["count"]))
+    else:
+        out["counts"] = {j: int(np.asarray(c))
+                         for j, c in state.get("counts", {}).items()}
     return out
 
 
@@ -137,6 +123,41 @@ def job_profile_from_tree(
                          n_workers=n_workers,
                          required_servers=required_servers)
     return profile, specs
+
+
+def build_flat_plan(abstract_params, n_shards: int, mode: str = "balanced",
+                    pad_to: int = 128, job_id: str = "flat") -> FlatPlan:
+    """Standalone single-job plan (``runtime.py:112``): each tensor goes to
+    a shard by the control plane's placement scheme, then the shards'
+    segments are laid contiguously."""
+    tasks: List[AggTask] = []
+    meta: Dict[int, Tuple[str, Tuple[int, ...], Any, int]] = {}
+    for i, (path, leaf) in enumerate(_tree_items(abstract_params)):
+        shape = tuple(leaf.shape)
+        size = int(np.prod(shape)) if shape else 1
+        tasks.append(AggTask(job_id, i, _leaf_key(path), nbytes=size * 4,
+                             exec_time=float(size)))
+        meta[i] = (_leaf_key(path), shape, numpy_dtype(leaf.dtype), size)
+    job = JobProfile(job_id, job_id, 1.0, tasks, required_servers=n_shards)
+    if mode == "balanced":
+        shards = balanced_shard_assignment(job, n_shards)
+    elif mode == "round_robin":
+        shards = round_robin_shard_assignment(job, n_shards)
+    else:
+        raise ValueError(f"unknown placement mode {mode!r}")
+    segments: List[Segment] = []
+    shard_sizes = []
+    for s in range(n_shards):
+        off = 0
+        for task in shards[s]:
+            key, shape, dtype, size = meta[task.tensor_id]
+            segments.append(Segment(key, s, off, size, shape, dtype,
+                                    job_id=job_id, tensor_id=task.tensor_id))
+            off += size
+        shard_sizes.append(off)
+    shard_len = max(1, -(-max(shard_sizes) // pad_to) * pad_to)
+    return FlatPlan(n_shards=n_shards, shard_len=shard_len,
+                    segments=tuple(segments), block_align=pad_to)
 
 
 # ------------------------------------------------------- flat <-> trees
@@ -165,7 +186,7 @@ def unflatten_tree(plan: FlatPlan, flat: torch.Tensor, abstract_params,
             start = plan.start(seg)
             slices[seg.key] = (flat[start : start + seg.size]
                                .reshape(seg.shape)
-                               .to(torch_dtype(seg.dtype)).clone())
+                               .to(torch_dtype(seg.dtype), copy=True))
     return _tree_rebuild(abstract_params, lambda key, _: slices[key])
 
 
@@ -244,9 +265,16 @@ def make_ps_train_step(
     job_id: Optional[str] = None,
     update_mode: str = "block",  # 'block' (O(job)) | 'masked' (oracle)
 ):
-    """Build one job's shared-service train step ``(state, batch) ->
-    (state, {"loss"})``, updating ``state``'s buffers in place.
+    """Build a PS-mode train step ``(state, batch) -> (state, {"loss"})``,
+    updating ``state``'s buffers in place.
 
+    ``job_id=None`` is the single-job step over a :func:`build_flat_plan`
+    space, state ``{flat, mu, nu, count}`` (:func:`init_ps_state`): pull
+    the whole tree, autograd, push the float32 flat gradient, and Adam
+    over every lane -- kernel K5 in one launch with ``fused_kernel=True``,
+    the plain ``_adam_math`` without.
+
+    With a ``job_id``, the step is that job's in a shared space:
     ``update_mode="block"`` runs in the job's packed domain (one gather,
     one pack, Adam over its owned lanes through kernel K3, one scatter per
     buffer).  ``fused_kernel`` is accepted for the reference's signature
@@ -261,7 +289,9 @@ def make_ps_train_step(
     if push_compression:
         raise _not_in_slice("push_compression", "4")
     if job_id is None:
-        raise _not_in_slice("the single-job (job_id=None) step", "3")
+        return _make_single_job_step(model_loss, plan, abstract_params,
+                                     lr=lr, b1=b1, b2=b2, eps=eps,
+                                     fused_kernel=fused_kernel)
     if update_mode == "block":
         return _make_block_step(model_loss, plan, abstract_params, lr=lr,
                                 b1=b1, b2=b2, eps=eps, job_id=job_id)
@@ -281,6 +311,31 @@ def make_ps_train_step(
         state["nu"].copy_(torch.where(mask, nu, state["nu"]))
         return (dict(state, counts=dict(state["counts"], **{job_id: count})),
                 {"loss": loss})
+
+    return step
+
+
+def _make_single_job_step(model_loss, plan, abstract_params, *, lr, b1, b2,
+                          eps, fused_kernel):
+    """The single-job step (``runtime.py:361-420`` with ``job_id=None``)."""
+    grad_fn = value_and_grad(model_loss)
+
+    def step(state, batch):
+        flat = state["flat"]
+        params = unflatten_tree(plan, flat, abstract_params)  # PULL
+        loss, grads = grad_fn(params, batch)
+        gflat = flatten_tree(plan, grads, device=flat.device)  # PUSH, fp32
+        del params, grads
+        count = state["count"] + 1
+        if fused_kernel:
+            agg_ops.adam_update(flat, gflat, state["mu"], state["nu"], count,
+                                lr=lr, b1=b1, b2=b2, eps=eps, wd=0.0)
+        else:
+            new = _adam_math(flat, gflat, state["mu"], state["nu"], count,
+                             lr=lr, b1=b1, b2=b2, eps=eps)
+            for name, t in zip(("flat", "mu", "nu"), new):
+                state[name].copy_(t)
+        return dict(state, count=count), {"loss": loss}
 
     return step
 
@@ -311,6 +366,17 @@ def _make_block_step(model_loss, plan, abstract_params, *, lr, b1, b2, eps,
                 {"loss": loss})
 
     return step
+
+
+def init_ps_state(plan: FlatPlan, params, push_compression=None
+                  ) -> Dict[str, Any]:
+    """Single-job state on the params' device: the flat buffer holds
+    exactly this job's tensors (float32), fresh moments, ``count`` 0."""
+    if push_compression:
+        raise _not_in_slice("push_compression", "4")
+    flat = flatten_tree(plan, params)
+    return {"flat": flat, "mu": torch.zeros_like(flat),
+            "nu": torch.zeros_like(flat), "count": 0}
 
 
 def init_shared_state(plan: FlatPlan, device) -> Dict[str, Any]:
