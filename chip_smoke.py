@@ -23,7 +23,30 @@ x seq 512 from a repeating synthetic corpus; seeded random weights):
   f. 5 steps of the single-job parameter-server step
      (``build_flat_plan`` over 2 shards, ``make_ps_train_step`` with
      ``job_id=None`` and ``fused_kernel=True``): one launch per step over
-     the whole float32 flat space.
+     the whole float32 flat space;
+
+and serving of the same model (seeded random bf16 weights):
+
+  g. the weights hosted as job "lm" of a ServiceRuntime and read back
+     through a ReplicaSet of 2 pull-only replicas
+     (``launch/serve.py:_pull_params_via_replicas``: served weights bit
+     for bit the hosted ones); a second, small job "side" (lr 1e-3)
+     joins through a replan; versioned pulls of both jobs, then two
+     ticks (one launch of the multi-job Adam kernel each), the first
+     applying a seeded push of "lm" only (lr 0: its weights stay put,
+     its block versions move), the second of "side" only; after each, a
+     versioned diff pull of each job must ship exactly the pushed job's
+     blocks and, patched with ``PullDiff.apply`` onto the client's
+     vector, equal a full pull bit for bit; then KV-cache decode through
+     ``make_serve_step`` at batch 16: a 128-token prompt by repeated
+     decode and 128 greedy tokens, timed as one window; the last prompt
+     step's logits held against ``make_prefill`` of the prompt (the
+     flash attention kernel, one launch per layer);
+  h. ``make_prefill`` at the prefill_32k cell's sequence length (32 768,
+     ``attn_chunk_k`` 1024, bf16; batch cut from 32 to 1): 3 timed
+     prefills, 24 launches of the flash attention kernel each; the
+     last-token logits held against the same prefill through the plain
+     ``chunked_attention``.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -31,8 +54,15 @@ against the full-gather oracle; the last tick of each of phases a-c
 against the plain multi-job update; one block step of phase d against
 the plain masked step; one fused step of phase e against the unfused
 optimizer's step; the first step of phase f against the same step with
-the plain ``_adam_math``.  Launch counters are set to 0 before each phase
-and read after it.  Any failed check raises.
+the plain ``_adam_math``; the decode's and the K7 prefill's logits
+against their references within the bf16 logit tolerance below.  The
+flash attention kernel is also held against its plain version at the
+prefill's layer shape (bf16: every element within rtol 1e-2 plus a small
+atol, and every query row of every head within 1e-2 relative L2 error;
+see K7_BF16_RTOL) and on small float32 (rtol/atol 2e-5) and bf16 cases
+(non-causal, ragged S, GQA, head dim 128, an unaligned view).  Launch
+counters are set to 0 before each phase and read after it.  Any failed
+check raises.
 
 Output: per-phase lines, one JSON line of kernels (time, bound, plain
 and library times, launches on the main path), the card's name and power
@@ -49,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import resource
 import statistics
@@ -63,9 +94,34 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 ADAM_FLOPS_PER_LANE = 14  # mu 3, nu 4, bias corrections 2, update 5
 ULP_BUDGET = 1  # plain vs kernel: same operation order, correctly rounded
 QWEN_BATCH, QWEN_SEQ, QWEN_LR = 8, 512, 3e-4
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 128
+PREFILL_SEQ = 32768  # the prefill_32k cell (repro/arch.py), batch cut to 1
+# K7 against its plain version.  float32 (the SIMT kernel): rtol = atol =
+# 2e-5, the reference kernel tests' own.  bfloat16 (the tensor-core
+# kernel): each output element within rtol 1e-2 (above one bf16 ulp,
+# 2^-7 relative at most) plus K7_BF16_ATOL, and the relative L2 error of
+# every (query row, head) over D at most K7_ROW_REL.  At the prefill
+# shape (S = 32 768, N(0, 1) inputs) a late row's output is about 0.01 in
+# size, so an atol of 2e-2 hid whole faults there; a key tile of 64
+# dropped from the last rows moves them by about sqrt(64 / 32768) = 4 %.
+# Set from scripts/torch_k7_fault_check.py at that shape (NVIDIA H100
+# 80GB HBM3, 700 W): the sound kernel needs atol 1.52e-3 and has a
+# largest row error of 5.30e-3; planted faults in the last query tile
+# (a dropped or a stale key tile, a normaliser 2 % high) show row errors
+# of 0.147, 0.154 and 0.0213.
+K7_F32_TOL = 2e-5
+K7_BF16_RTOL, K7_BF16_ATOL, K7_ROW_REL = 1e-2, 2.5e-3, 1e-2
+# Two bf16 forwards of the same model that round in different places
+# (decode vs prefill; K7 vs chunked attention) differ by about one bf16
+# unit roundoff (2^-8) of the residual stream per layer, adding up like a
+# random walk: sqrt(24) * 2^-8 = 0.019 relative RMS in the logits.  The
+# checks allow 2.5x that, and a largest single difference of a tenth of
+# the largest logit.
+LOGIT_REL_RMS, LOGIT_MAX_FRAC = 0.05, 0.1
 
 
 def _import_port():
@@ -121,9 +177,9 @@ def time_ms(fn, device, reps=10, warmup=3, inner=5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -777,6 +833,334 @@ def k5_small_checks(device):
           flush=True)
 
 
+# ------------------------------------------------------ the serving phases
+def logits_check(what, got, want):
+    """The bf16 logit tolerance (LOGIT_REL_RMS, LOGIT_MAX_FRAC); returns
+    the numbers it compared."""
+    got, want = got.float(), want.float()
+    d = got - want
+    out = dict(max_abs=float(d.abs().max()),
+               rel_rms=float(d.norm() / want.norm()),
+               max_ref=float(want.abs().max()),
+               argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()))
+    if not (all(np.isfinite([out["max_abs"], out["rel_rms"]]))
+            and out["rel_rms"] <= LOGIT_REL_RMS
+            and out["max_abs"] <= LOGIT_MAX_FRAC * out["max_ref"]):
+        raise AssertionError(f"{what}: logits outside the bf16 tolerance "
+                             f"(rel RMS <= {LOGIT_REL_RMS}, max abs <= "
+                             f"{LOGIT_MAX_FRAC} x max |ref|): {out}")
+    return out
+
+
+def fmt_check(c):
+    return (f"max_abs={c['max_abs']:.4f} rel_rms={c['rel_rms']:.5f} "
+            f"max_ref={c['max_ref']:.3f} argmax_agree={c['argmax_agree']:.4f}")
+
+
+def serve_phase(cfg, device, wrappers, batch, prompt_len, gen_len):
+    """Phase g: host the weights, read them through the replicas, take
+    versioned diff pulls of two jobs across two ticks, then decode and hold
+    the last prompt step against the K7 prefill.  Returns (counters, the
+    served bf16 weights)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    params = tf.init_params(cfg, gen, device)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    timings = {}
+    t0 = time.perf_counter()
+    served, rs = serve._pull_params_via_replicas(params, 2, timings)
+    sync(device)
+    host_s = time.perf_counter() - t0
+    del params
+    eng = rs.engine
+    plan = eng.plan
+    layout = plan.job_layout("lm")
+    fresh = dataclasses.replace(plan)  # same plan, empty layout caches
+    t0 = time.perf_counter()
+    fresh.job_layout("lm")
+    layout_s = time.perf_counter() - t0
+    del fresh
+    print(f"phase g set-up: hosted lm lanes={plan.total_len} payload="
+          f"{plan.payload_elements} shards={plan.n_shards} add_job_s="
+          f"{timings['add_job_s']:.2f} (job_layout_s={layout_s:.2f}) "
+          f"publish_and_pull_s={timings['publish_and_pull_s']:.2f} "
+          f"host_to_served_s={host_s:.2f} served_bit_exact=True "
+          f"publishes={rs.n_publishes}", flush=True)
+    # A second, small job on the same service (lr > 0, so its weights
+    # move), then one tick per job, each applying one job's push: every
+    # diff pull must select the pushed job's blocks and no block of the
+    # other, and patch onto the client's vector to equal a full pull.
+    n_side = 1 << 20
+    t0 = time.perf_counter()
+    eng.runtime.add_job("side", {"w": torch.randn(n_side, generator=gen,
+                                                  device=device)},
+                        _no_model_loss, lr=1e-3, required_servers=1,
+                        agg_throughput=4 * n_side / 0.2)
+    side_s = time.perf_counter() - t0
+    rs.refresh()  # the replan bumped the epoch: publish the new layout
+    layouts = {j: eng.plan.job_layout(j) for j in ("lm", "side")}
+    have = {}
+    for j, lay in layouts.items():
+        d0 = rs.pull(j, since_version=0)
+        if not d0.full or d0.data.numel() != lay.packed_len:
+            raise AssertionError(f"phase g: the first versioned pull of {j} "
+                                 f"is not full")
+        have[j] = (d0.version, d0.data)
+    wire = []
+    for pushed in ("lm", "side"):
+        lay = layouts[pushed]
+        mask = torch.zeros(lay.packed_len, dtype=torch.bool)
+        for _, start, size, _, _ in lay.slots:
+            mask[start:start + size] = True
+        g = (torch.randn(lay.packed_len, generator=gen, device=device) * 1e-3
+             * mask.to(device))
+        eng.submit_packed(pushed, g)
+        if eng.tick() != 1:
+            raise AssertionError(f"phase g: the tick did not apply the push "
+                                 f"of {pushed}")
+        del g, mask
+        rs.refresh()
+        for j, (version, data) in have.items():
+            d1 = rs.pull(j, since_version=version)
+            patched = d1.apply(data)
+            full = eng.pull(j, since_version=0).data
+            want = layouts[j].blocks.size if j == pushed else 0
+            if d1.full or d1.block_ids.size != want:
+                raise AssertionError(
+                    f"phase g: after a tick of {pushed}, the diff pull of "
+                    f"{j} shipped {d1.block_ids.size} blocks (full="
+                    f"{d1.full}), expected {want}")
+            if not bits_equal(patched, full):
+                raise AssertionError(f"phase g: the patched diff pull of {j} "
+                                     f"differs from a full pull")
+            # lm has lr 0: its weights stay put; side's move when pushed.
+            moves = j == pushed == "side"
+            if bits_equal(full, data) == moves:
+                raise AssertionError(
+                    f"phase g: {j}'s weights {'stayed' if moves else 'moved'}"
+                    f" across a tick of {pushed}")
+            wire.append(f"{pushed}-tick/{j}: {d1.block_ids.size} of "
+                        f"{layouts[j].blocks.size} blocks {d1.bytes_wire} of "
+                        f"{d1.bytes_full} B")
+            have[j] = (d1.version, patched)
+            del d1, full
+    print(f"phase g versioned pulls (side job {n_side} lanes, add_job_s="
+          f"{side_s:.2f}): {'; '.join(wire)} patched_equals_full_pull=True "
+          f"tick_launches={eng.stats.n_launches} publishes={rs.n_publishes}",
+          flush=True)
+    service_peak = torch.cuda.max_memory_allocated()
+    # The service's objects refer to each other: collect them now.
+    del have, patched, rs, eng, plan, layout, layouts
+    gc.collect()
+    torch.cuda.empty_cache()
+    # KV-cache decode at batch 16.
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len), dtype=np.int32)).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.decode(cfg, served, prompt, gen_len)
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = out["gen_s"] * 1e3 / (gen_len - 1)
+    tokens = out["tokens"]
+    if tokens.shape != (batch, gen_len) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"phase g: bad tokens {tuple(tokens.shape)}")
+    # The last prompt step against the K7 prefill of the prompt.
+    pre = tf.make_prefill(cfg)(served, prompt)
+    check = logits_check("phase g decode vs K7 prefill", out["prompt_logits"],
+                         pre)
+    sync(device)
+    counts = read_counters(wrappers)
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"phase g: {counts['flash_attention']} K7 "
+                             f"launches for one {cfg.n_layers}-layer prefill")
+    print(f"phase g (Qwen serve: replicas x2, decode batch={batch} prompt="
+          f"{prompt_len} gen={gen_len}): decode_ms_per_step={step_ms:.3f} "
+          f"(window {out['gen_s']:.3f} s for {gen_len - 1} steps) "
+          f"tokens_per_s={batch / step_ms * 1e3:.0f} "
+          f"decode_with_prompt_s={decode_s:.2f} "
+          f"decode_vs_prefill: {fmt_check(check)} counters={counts} "
+          f"service_peak_gb={service_peak / 1e9:.2f} "
+          f"decode_max_memory_allocated_gb={peak / 1e9:.2f} first_tokens="
+          f"{tokens[0, :8].tolist()} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts, served
+
+
+def prefill_phase(cfg, params, device, wrappers, seq):
+    """Phase h: 3 prefills through K7 at ``seq``, then the same prefill
+    through the plain chunked attention; returns the counters."""
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(cfg, attn_chunk_k=1024)  # prefill_32k cell
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
+                                         dtype=np.int32)).to(device)
+    prefill = tf.make_prefill(cfg)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = prefill(params, toks)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != 3 * cfg.n_layers:
+        raise AssertionError(f"phase h: {counts['flash_attention']} K7 "
+                             f"launches for 3 prefills of {cfg.n_layers} "
+                             f"layers")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = tf.make_prefill(cfg, attention="plain")(params, toks)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated()
+    if read_counters(wrappers)["flash_attention"] != counts["flash_attention"]:
+        raise AssertionError("phase h: the plain prefill launched K7")
+    check = logits_check("phase h K7 vs chunked prefill", logits, plain)
+    med = statistics.median(times)
+    print(f"phase h (Qwen prefill, seq={seq} batch=1, K7): prefill_s_median="
+          f"{med:.3f} prefill_s={[round(t, 3) for t in times]} tokens_per_s="
+          f"{seq / med:.0f} k7_per_prefill={counts['flash_attention'] // 3} "
+          f"counters={counts} max_memory_allocated_gb={peak / 1e9:.2f} "
+          f"chunked_attention_prefill_s={plain_s:.3f} (peak "
+          f"{plain_peak / 1e9:.2f} GB) k7_vs_chunked: {fmt_check(check)}",
+          flush=True)
+    return counts
+
+
+def k7_bound(b, s, h, d, elem):
+    """Least time for one causal K7 call: every (query, visible key) pair
+    costs 4 D operations (q.k and p.v), S (S + 1) / 2 pairs per head; the
+    bytes are q, k, v read once and o written once."""
+    flops = 4 * d * b * h * s * (s + 1) / 2
+    return bound_ms(4 * b * s * h * d * elem, flops, BF16_FLOPS)
+
+
+def k7_compare(kern: torch.Tensor, plain: torch.Tensor) -> dict:
+    """How far a bf16 K7 output (B, S, H, D) lies from its plain version:
+    the largest absolute difference, the least atol at which every element
+    passes at rtol K7_BF16_RTOL, and the largest relative L2 difference of
+    one (query row, head) over D; ``ok`` when both are within limits."""
+    kern, plain = kern.float(), plain.float()
+    diff = (kern - plain).abs()
+    row = diff.norm(dim=-1) / plain.norm(dim=-1).clamp_min(1e-30)
+    atol = float((diff - K7_BF16_RTOL * plain.abs()).max())
+    rel = float(row.max())
+    return dict(max_abs=float(diff.max()), atol_needed=atol, max_row_rel=rel,
+                ok=atol <= K7_BF16_ATOL and rel <= K7_ROW_REL)
+
+
+def fmt_k7(c: dict) -> str:
+    return (f"max_abs={c['max_abs']:.4e} atol_needed={c['atol_needed']:.4e} "
+            f"(limit {K7_BF16_ATOL:g} at rtol {K7_BF16_RTOL:g}) max_row_rel="
+            f"{c['max_row_rel']:.4e} (limit {K7_ROW_REL:g})")
+
+
+def k7_path_inputs(device, shape):
+    """q, k, v (bf16, N(0, 1), seeded) at one layer's prefill shape."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    return tuple(torch.randn(shape, generator=gen, device=device
+                             ).to(torch.bfloat16) for _ in range(3))
+
+
+def k7_entry(device, shape):
+    """K7 at one layer's prefill shape (bf16, causal) against its plain
+    version, timed beside the plain version and
+    ``scaled_dot_product_attention`` on the same tensors."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+
+    b, s, h, d = shape
+    q, k, v = k7_path_inputs(device, shape)
+    kern = fa_ops.flash_attention(q, k, v, causal=True)
+    plain = fa_ref.flash_attention_plain(q, k, v, causal=True)
+    cmp = k7_compare(kern, plain)
+    print(f"K7 at {shape} bf16 causal vs plain: {fmt_k7(cmp)}", flush=True)
+    if not cmp["ok"]:
+        raise AssertionError(f"K7 differs from its plain version at {shape}: "
+                             f"{fmt_k7(cmp)}")
+    err = cmp["max_abs"]
+    del kern, plain
+    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True),
+                 device, reps=5, warmup=1, inner=2)
+    plain_ms = time_ms(lambda: fa_ref.flash_attention_plain(q, k, v),
+                       device, reps=3, warmup=1, inner=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                         device)
+    bnd, by = k7_bound(b, s, h, d, 2)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=library_ms, max_abs_err=err, max_ulp=None,
+                shape=f"(B,S,H,D)={shape} bf16 causal")
+
+
+def k7_small_checks(device):
+    """K7 against its plain version on small cases, in float32 (the SIMT
+    kernel, rtol/atol 2e-5) and in bfloat16 (the tensor-core kernel, by
+    ``k7_compare``'s limits; one case on an unaligned view, which the
+    wrapper copies first): non-causal, ragged S (padded keys), GQA, head
+    dim 128."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    cases = {  # name: (B, S, HQ, HK, D, causal)
+        "non-causal S=256": (2, 256, 4, 4, 64, False),
+        "ragged S=200 causal": (1, 200, 4, 4, 64, True),
+        "ragged S=1000 non-causal": (1, 1000, 4, 4, 64, False),
+        "GQA HQ=8 HK=2 S=384": (1, 384, 8, 2, 64, True),
+        "D=128 S=300": (1, 300, 4, 4, 128, True),
+    }
+    worst = {"float32": 0.0, "atol_needed": -1.0, "max_row_rel": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, s, hq, hk, d, causal) in cases.items():
+            q = torch.randn(b, s, hq, d, generator=gen, device=device)
+            k, v = (torch.randn(b, s, hk, d, generator=gen, device=device)
+                    for _ in range(2))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            if dtype == torch.bfloat16 and name.startswith("ragged S=200"):
+                # an unaligned view (row stride 65 elements)
+                q = torch.nn.functional.pad(q, (0, 1))[..., :d]
+            kern = fa_ops.flash_attention(q, k, v, causal=causal)
+            plain = fa_ref.flash_attention_plain(q, k, v, causal=causal)
+            if dtype == torch.float32:
+                err = max_abs(kern, plain)
+                worst["float32"] = max(worst["float32"], err)
+                if not torch.allclose(kern, plain, rtol=K7_F32_TOL,
+                                      atol=K7_F32_TOL):
+                    raise AssertionError(f"K7 {name} float32: differs from "
+                                         f"its plain version by {err}")
+                continue
+            cmp = k7_compare(kern, plain)
+            for key in ("atol_needed", "max_row_rel"):
+                worst[key] = max(worst[key], cmp[key])
+            if not cmp["ok"]:
+                raise AssertionError(f"K7 {name} bfloat16: {fmt_k7(cmp)}")
+    print(f"K7 small checks ({', '.join(cases)}): float32 max abs "
+          f"{worst['float32']:.3e} (rtol/atol {K7_F32_TOL:g}); bfloat16 "
+          f"atol_needed {worst['atol_needed']:.3e} (limit {K7_BF16_ATOL:g} "
+          f"at rtol {K7_BF16_RTOL:g}) max_row_rel {worst['max_row_rel']:.3e} "
+          f"(limit {K7_ROW_REL:g}; the S=200 case on an unaligned view)",
+          flush=True)
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -791,6 +1175,7 @@ def main() -> int:
     _import_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.relayout import ops as rl_ops
 
     device = torch.device("cuda:0")
@@ -817,6 +1202,7 @@ def main() -> int:
         "relayout_stage": rl_ops.relayout_stage,
         "relayout_scatter": rl_ops.relayout_scatter,
         "agg_adam_dense": agg_ops.aggregate_adam,
+        "flash_attention": fa_ops.flash_attention,
     }
     totals = dict.fromkeys(wrappers, 0)
 
@@ -930,6 +1316,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5_small_checks(device)
 
+    # ---- phases g and h: serving Qwen1.5-0.5B, full width and depth
+    serve_shape = ((SERVE_BATCH, SERVE_PROMPT, SERVE_GEN) if scale == 1.0
+                   else (4, 16, 16))
+    seq = PREFILL_SEQ if scale == 1.0 else 512
+    counts_g, served = serve_phase(cfg, device, wrappers, *serve_shape)
+    _require(counts_g, ("agg_adam_multijob_fused", "flash_attention"), "g")
+    add_totals(counts_g)
+    counts_h = prefill_phase(cfg, served, device, wrappers, seq)
+    _require(counts_h, ("flash_attention",), "h")
+    add_totals(counts_h)
+    del served
+    torch.cuda.empty_cache()
+    entries["flash_attention"] = k7_entry(
+        device, (1, seq, cfg.n_heads, cfg.head_dim))
+    k7_small_checks(device)
+
     # ---- report
     k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
     rl_src = "src/repro_torch/kernels/relayout/csrc/relayout.cu"
@@ -953,6 +1355,10 @@ def main() -> int:
         "agg_adam_dense:ps_flat": (
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
             counts_f["agg_adam_dense"]),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn/kernel.py:65",
+            counts_h["flash_attention"]),  # phase h: at the entry's shape
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

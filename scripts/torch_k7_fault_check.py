@@ -1,0 +1,119 @@
+"""Planted faults against K7's check at the prefill shape.
+
+Builds the flash attention kernel (K7) as it is and with each of a few
+planted faults, runs each at one prefill layer's shape ((B, S, H, D) =
+(1, 32768, 16, 64), bf16, causal, the inputs ``chip_smoke.py`` uses) and
+prints how far each lies from the plain version, beside the limits of
+``chip_smoke.k7_compare``.  Exits 1 unless the sound kernel passes that
+check and every planted fault fails it.  The faults touch the last query
+tile only (its 64 rows see the most keys, so each key there weighs
+least): the hardest place for a check to see them.  The faulty sources
+are written and built under ``build/k7_faults/`` (git-ignored).
+
+  python3 scripts/torch_k7_fault_check.py      (on a CUDA card, with nvcc)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attn import ops, ref  # noqa: E402
+
+SHAPE = (1, cs.PREFILL_SEQ, 16, 64)
+LOOP = "  for (int k0 = 0; k0 < kv_end; k0 += kMmaBK) {\n    __syncthreads();\n"
+LOAD = "    for (int idx = threadIdx.x; idx < kMmaBK * D / 8; idx += kThreads) {"
+NORM = "  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);\n"
+LAST = "blockIdx.x == 0"  # the last query tile (heaviest first)
+# name: (text in flash_attn.cu, its replacement)
+FAULTS = {
+    "drop the key tile before the diagonal": (
+        LOOP, LOOP + f"    if ({LAST} && k0 == kv_end - 2 * kMmaBK) continue;\n"),
+    "stale K/V tile (keep the previous one)": (
+        LOAD, f"    if (!({LAST} && k0 == kv_end - 2 * kMmaBK))\n" + LOAD),
+    "normaliser 2 % high": (
+        NORM, NORM.replace("const float d0", "float d0")
+        + f"  if ({LAST}) {{ d0 *= 1.02f; d1 *= 1.02f; }}\n"),
+}
+
+
+def build_faults():
+    """Write and build every faulty source, all nvcc runs at once;
+    returns {name: the library's flash_attn_fwd}."""
+    src = (_build.KERNELS_DIR / "flash_attn" / "csrc" / "flash_attn.cu"
+           ).read_text()
+    out = _build.BUILD_DIR.parent / "k7_faults"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (old, new)) in enumerate(FAULTS.items()):
+        if src.count(old) != 1:
+            raise RuntimeError(f"fault {name!r}: its target text is not in "
+                               f"flash_attn.cu exactly once")
+        cu, so = out / f"fault{i}.cu", out / f"libfault{i}.so"
+        cu.write_text(src.replace(old, new))
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for fault {name!r}:\n{log}")
+        fns[name] = ctypes.CDLL(str(so)).flash_attn_fwd
+    return fns
+
+
+def run(fn=None) -> dict:
+    """K7 (or, with ``fn``, a faulty build's entry point put in its place)
+    against the plain version at SHAPE."""
+    device = torch.device("cuda:0")
+    q, k, v = cs.k7_path_inputs(device, SHAPE)
+    real = _build.entry
+
+    def entry(name, fname, argtypes):
+        if fn is None or name != "flash_attn":
+            return real(name, fname, argtypes)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
+    with mock.patch.object(_build, "entry", entry):
+        kern = ops.flash_attention(q, k, v, causal=True)
+    plain = ref.flash_attention_plain(q, k, v, causal=True)
+    return cs.k7_compare(kern, plain)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_k7_fault_check: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"K7 at {SHAPE} bf16 causal against its plain version; "
+          f"limits: atol_needed <= {cs.K7_BF16_ATOL:g} at rtol "
+          f"{cs.K7_BF16_RTOL:g}, max_row_rel <= {cs.K7_ROW_REL:g}", flush=True)
+    results = {"sound": run()}
+    for name, fn in build_faults().items():
+        results[name] = run(fn)
+    bad = []
+    for name, c in results.items():
+        want = name == "sound"
+        print(f"{name}: {cs.fmt_k7(c)} -> "
+              f"{'passes' if c['ok'] else 'fails'}", flush=True)
+        if c["ok"] != want:
+            bad.append(name)
+    if bad:
+        print(f"the check misjudged: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

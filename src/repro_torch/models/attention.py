@@ -2,12 +2,15 @@
 
 - ``full_attention``: einsum GQA attention (S x S scores).
 - ``chunked_attention``: online softmax over KV chunks, never S x S.
+- ``decode_attention``: one new query token against a KV cache, positions
+  at or past the cache's valid length masked.
+- ``flash_attention``: the flash attention kernel K7 for CUDA tensors
+  (its plain version for CPU tensors); the inference prefill's attention.
 
-Both take q (B,S,HQ,D) and k, v (B,S,HK,D) with HQ % HK == 0, and align
+All take q (B,S,HQ,D) and k, v (B,S,HK,D) with HQ % HK == 0, and align
 the causal mask to the END of the kv sequence, as the reference does.
-These are plain tensor code in the reference too, not a Pallas kernel.
-``decode_attention`` waits for the serving path (ROADMAP.md, Queue 1
-item 15).
+The first three are plain tensor code in the reference too, not a Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..kernels.flash_attn import ops as flash_ops
 
 NEG_INF = -1e30
 
@@ -82,3 +87,36 @@ def chunked_attention(q, k, v, causal: bool = True, chunk_k: int = 1024,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len=None,
+                     scale: Optional[float] = None):
+    """q: (B,1,HQ,D); caches: (B,Smax,HK,D); cache_len: an int or a (B,)
+    tensor of valid lengths (positions >= cache_len are masked).  Returns
+    (B,1,HQ,D)."""
+    b, _, hq, d = q.shape
+    smax, hk = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    g = hq // hk
+    qg = (q * scale).reshape(b, hk, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
+    if cache_len is not None:
+        pos = torch.arange(smax, device=q.device)
+        if not isinstance(cache_len, int):  # per-row lengths
+            cache_len = torch.as_tensor(cache_len, device=q.device)[:, None]
+        valid = pos[None] < cache_len  # (1 or B, Smax)
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bkhd->bhgd", (p / l).to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, hq, d)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Softmax attention through the flash attention kernel (K7) for CUDA
+    tensors, its plain version for CPU tensors.  Same layout and causal
+    alignment as :func:`full_attention`; forward only (inputs must not
+    require grad)."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, scale=scale)

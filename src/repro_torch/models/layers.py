@@ -37,6 +37,19 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 # ------------------------------------------------------------------- RoPE
+def rope_row(position: int, d_head: int, theta: float = 10000.0,
+             device=None):
+    """cos/sin tables with a single row for ``position`` (the decode path:
+    no ``(max_len, d/2)`` table per step).  Returns ((1, d/2), (1, d/2))
+    float32."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    inv = 1.0 / (theta ** exps)
+    ang = torch.tensor(float(position), dtype=torch.float32,
+                       device=device) * inv
+    return torch.cos(ang)[None], torch.sin(ang)[None]
+
+
 def rope_frequencies(d_head: int, max_len: int, theta: float = 10000.0,
                      device=None):
     """cos/sin tables, each (max_len, d_head/2) float32."""

@@ -4,16 +4,17 @@ GQA with optional QKV bias, RoPE, RMS/LayerNorm, the parallel
 attention+FFN block, tied or separate unembedding, the layers kept as
 stacked ``(L, ...)`` leaves (the reference's ``lax.scan`` layout) and run
 one at a time (remat through ``torch.utils.checkpoint`` when
-``cfg.remat``), microbatched gradient accumulation and the chunked
-cross-entropy.  Parameters are plain nested dicts with the reference's
-leaf keys, shapes and dtypes, so weights carry across and
-``build_flat_plan`` lays out both packages alike.
+``cfg.remat``), microbatched gradient accumulation, the chunked
+cross-entropy, and serving: the KV-cache decode step (``init_kv_cache``,
+``make_serve_step``) and the inference prefill (``make_prefill``), whose
+attention runs through the flash attention kernel K7.  Parameters are
+plain nested dicts with the reference's leaf keys, shapes and dtypes, so
+weights carry across and ``build_flat_plan`` lays out both packages alike.
 
 One device: the reference's activation-sharding constraints
 (``act.constrain``) have nothing to do here.  Matrix products are
-``torch.einsum`` / ``@``, as the reference leaves them to XLA.  MoE, MLA
-and the serving steps (``make_serve_step``, ``make_prefill``) are not
-ported yet (ROADMAP.md, Queue 1 item 15).
+``torch.einsum`` / ``@``, as the reference leaves them to XLA.  MoE and
+MLA are not ported yet (ROADMAP.md, Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from .layers import (
     layer_norm,
     rms_norm,
     rope_frequencies,
+    rope_row,
     silu,
 )
 
@@ -200,7 +202,14 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 
 
 # ============================================================ forward pieces
-def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None):
+# How the training/prefill path computes attention: "plain" is the
+# reference's choice by config (chunked above ``attn_chunk_k``, else full);
+# "flash" is the flash attention kernel K7 (forward only: the prefill).
+ATTENTION = ("plain", "flash")
+
+
+def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None,
+                     attention: str = "plain"):
     """x: (B,S,d) -> (B,S,d). Training/prefill path."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
@@ -210,7 +219,9 @@ def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None):
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    if cfg.attn_chunk_k and s > cfg.attn_chunk_k:
+    if attention == "flash":
+        o = attn_lib.flash_attention(q, k, v, causal=True)
+    elif cfg.attn_chunk_k and s > cfg.attn_chunk_k:
         o = attn_lib.chunked_attention(q, k, v, causal=True,
                                        chunk_k=cfg.attn_chunk_k)
     else:
@@ -228,15 +239,17 @@ def _ffn_block(cfg: LMConfig, p, x):
                                         device=x.device)
 
 
-def _layer_fn(cfg: LMConfig, p, x, cos, sin, positions=None):
+def _layer_fn(cfg: LMConfig, p, x, cos, sin, positions=None,
+              attention: str = "plain"):
     """One transformer block. Returns (x_out, aux_loss)."""
     if cfg.parallel_block:
         h = _apply_norm(cfg, p["ln1"], x)
-        a = _attention_block(cfg, p["attn"], h, cos, sin, positions)
+        a = _attention_block(cfg, p["attn"], h, cos, sin, positions,
+                             attention)
         f, aux = _ffn_block(cfg, p, h)
         return x + (a + f), aux
     a = _attention_block(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x), cos,
-                         sin, positions)
+                         sin, positions, attention)
     x = x + a
     f, aux = _ffn_block(cfg, p, _apply_norm(cfg, p["ln2"], x))
     return x + f, aux
@@ -252,10 +265,15 @@ def _unstack(stacked) -> list:
             for i in range(n)]
 
 
-def forward_hidden(cfg: LMConfig, params, tokens) -> Tuple[torch.Tensor,
-                                                           torch.Tensor]:
-    """tokens: (B,S) -> hidden (B,S,d), total aux loss."""
+def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B,S) -> hidden (B,S,d), total aux loss.  ``attention``
+    picks the attention of every layer (see ``ATTENTION``); remat applies
+    only where autograd records the forward."""
     _check_dense(cfg)
+    if attention not in ATTENTION:
+        raise ValueError(f"attention must be one of {ATTENTION}, got "
+                         f"{attention!r}")
     # The embedding gather.  ``F.embedding``'s backward sums repeated
     # tokens in a fixed order; an indexing gather's backward accumulates
     # them in parallel, in an order that changes from run to run.
@@ -264,15 +282,18 @@ def forward_hidden(cfg: LMConfig, params, tokens) -> Tuple[torch.Tensor,
                                 cfg.rope_theta, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.first_k_dense):
-        x, aux = _layer_fn(cfg, params[f"dense_layer_{i}"], x, cos, sin)
+        x, aux = _layer_fn(cfg, params[f"dense_layer_{i}"], x, cos, sin,
+                           attention=attention)
         aux_total = aux_total + aux
     if "layers" in params:
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer_p in _unstack(params["layers"]):
-            if cfg.remat:
+            if remat:
                 x, aux = checkpoint(_layer_fn, cfg, layer_p, x, cos, sin,
-                                    use_reentrant=False)
+                                    None, attention, use_reentrant=False)
             else:
-                x, aux = _layer_fn(cfg, layer_p, x, cos, sin)
+                x, aux = _layer_fn(cfg, layer_p, x, cos, sin,
+                                   attention=attention)
             aux_total = aux_total + aux
     return _apply_norm(cfg, params["final_norm"], x), aux_total
 
@@ -334,9 +355,104 @@ def make_train_step(cfg: LMConfig, optimizer, n_microbatches: int = 1,
     return train_step
 
 
+# ================================================================= serving
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's cache tree: ``{"scan": {"k", "v"}: (L, B, max_len,
+    HK, Dh)}`` (plus ``"dense"`` for leading dense layers) in the model's
+    dtype, zeroed, and ``"length"``, the number of valid positions, a
+    host int (the reference's int32 scalar)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def mk(n_layers):
+        return {name: torch.zeros((n_layers, batch, max_len, hk, dh),
+                                  dtype=cfg.torch_dtype, device=dev)
+                for name in ("k", "v")}
+
+    cache: Dict[str, Any] = {"scan": mk(cfg.n_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        cache["dense"] = mk(cfg.first_k_dense)
+    cache["length"] = 0
+    return cache
+
+
+def _decode_attn_gqa(cfg, p, x, cache_k, cache_v, cache_len: int, cos, sin):
+    """x: (B,1,d); caches (B,Smax,HK,Dh), written in place at position
+    ``cache_len``.  Returns the attention output (B,1,d).  cos/sin are
+    single-row tables for the current position (index 0)."""
+    pos = torch.zeros((x.shape[0], 1), dtype=torch.long, device=x.device)
+    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
+    k = torch.einsum("bsd,dhe->bshe", x, p["w_k"])
+    v = torch.einsum("bsd,dhe->bshe", x, p["w_v"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = apply_rope(q, cos, sin, pos)
+    k = apply_rope(k, cos, sin, pos)
+    cache_k[:, cache_len:cache_len + 1] = k
+    cache_v[:, cache_len:cache_len + 1] = v
+    o = attn_lib.decode_attention(q, cache_k, cache_v, cache_len + 1)
+    return torch.einsum("bshe,hed->bsd", o, p["w_o"])
+
+
 def make_serve_step(cfg: LMConfig):
-    raise _not_ported("make_serve_step (KV-cache decode)")
+    """decode: (params, cache, tokens (B,1)) -> (logits (B,V) float32, the
+    same cache tree with ``length`` advanced).  The new position's keys
+    and values are written into the cache in place."""
+    _check_dense(cfg)
+
+    def serve_step(params, cache, tokens):
+        length = int(cache["length"])
+        if length >= cache["scan"]["k"].shape[2]:
+            raise ValueError(f"KV cache full ({length} positions)")
+        with torch.inference_mode():
+            x = F.embedding(tokens.long(), params["embed"])  # (B,1,d)
+            cos, sin = rope_row(length, cfg.head_dim, cfg.rope_theta,
+                                device=x.device)
+
+            def run_layer(p, x, layer_k, layer_v):
+                h = _apply_norm(cfg, p["ln1"], x)
+                a = _decode_attn_gqa(cfg, p["attn"], h, layer_k, layer_v,
+                                     length, cos, sin)
+                if cfg.parallel_block:
+                    f, _ = _ffn_block(cfg, p, h)
+                    return x + a + f
+                x = x + a
+                f, _ = _ffn_block(cfg, p, _apply_norm(cfg, p["ln2"], x))
+                return x + f
+
+            for i in range(cfg.first_k_dense):
+                x = run_layer(params[f"dense_layer_{i}"], x,
+                              cache["dense"]["k"][i], cache["dense"]["v"][i])
+            if "layers" in params:
+                for i, layer_p in enumerate(_unstack(params["layers"])):
+                    x = run_layer(layer_p, x, cache["scan"]["k"][i],
+                                  cache["scan"]["v"][i])
+            h = _apply_norm(cfg, params["final_norm"], x)
+            logits = (h[:, 0] @ _unembed(cfg, params)).float()
+        cache["length"] = length + 1
+        return logits[:, :cfg.vocab], cache
+
+    return serve_step
 
 
-def make_prefill(cfg: LMConfig):
-    raise _not_ported("make_prefill")
+def make_prefill(cfg: LMConfig, attention: str = "flash"):
+    """prefill: (params, tokens (B,S)) -> last-token logits (B,V) float32,
+    the inference forward (no loss; the ``prefill_32k`` shape).  Its
+    attention runs through the flash attention kernel K7 by default;
+    ``attention="plain"`` takes the training path's attention (chunked or
+    full, as the config says) for comparison."""
+    _check_dense(cfg)
+    if attention not in ATTENTION:
+        raise ValueError(f"attention must be one of {ATTENTION}, got "
+                         f"{attention!r}")
+
+    def prefill(params, tokens):
+        with torch.inference_mode():
+            hidden, _ = forward_hidden(cfg, params, tokens,
+                                       attention=attention)
+            logits = (hidden[:, -1] @ _unembed(cfg, params)).float()
+        return logits[:, :cfg.vocab]
+
+    return prefill

@@ -10,7 +10,10 @@ The counterpart of ``repro.ps.engine.ServiceTickEngine``:
                shared flat/mu/nu; below ``min_batch_jobs`` pending jobs
                each job's push goes through the same applier alone
   pull         a job reads its own lanes; a job ``max_staleness`` steps
-               ahead of the service forces ticks first
+               ahead of the service forces ticks first; with
+               ``since_version`` only the owned blocks whose version
+               moved since the client's :class:`PullVersion` ship, as a
+               :class:`PullDiff`
 
 Block exclusivity makes the batched pass a pure execution-order change:
 bit-exact with K sequential per-job block steps.  Replans are stall-free:
@@ -23,6 +26,11 @@ CLONES the state (appliers write in place, so a snapshot that aliased
 live state would silently change) and logs the pushes applied since; a
 failed apply restores a clone of the snapshot and replays the log, and
 ``max_apply_retries`` consecutive failures quarantine the engine.
+
+Read tier: a :class:`~repro_torch.ps.replica.ReplicaSet` registers as
+``engine._replica_hub`` and is offered a snapshot every applying tick,
+pre-apply, at the rollback-snapshot point.  What it publishes is always a
+clone (the rollback anchor's, or its own), never the live buffers.
 """
 
 from __future__ import annotations
@@ -39,9 +47,10 @@ from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
 from .faults import HEALTHY, QUARANTINED, EngineQuarantinedError, RetryPolicy
 from .plan import FlatPlan
-from .runtime import _not_in_slice, _pack_slots, _unpack_slots
+from .runtime import _gather_owned, _not_in_slice, _pack_slots, _unpack_slots
 
-__all__ = ["PushFuture", "ServiceTickEngine", "TickStats"]
+__all__ = ["PullDiff", "PullVersion", "PushFuture", "ServiceTickEngine",
+           "TickStats"]
 
 
 class PushFuture:
@@ -119,8 +128,8 @@ class TickStats:
     n_lease_expirations: int = 0  # (leases, not ported yet)
     push_bytes_raw: int = 0  # fp32 bytes of every submitted push
     push_bytes_wire: int = 0  # same pushes on the wire (fp32: equal)
-    n_full_pulls: int = 0  # whole-slice pulls
-    n_diff_pulls: int = 0  # (versioned pulls, not ported yet)
+    n_full_pulls: int = 0  # whole-slice pulls (incl. diff-pull fallbacks)
+    n_diff_pulls: int = 0  # versioned pulls that shipped changed blocks only
     pull_bytes_wire: int = 0  # pull payload bytes actually shipped
     pull_bytes_full: int = 0  # what the same pulls cost as full pulls
 
@@ -130,6 +139,56 @@ class TickStats:
         if not self.n_ticks:
             return 0.0
         return self.n_applied / self.n_ticks
+
+
+@dataclass(frozen=True)
+class PullVersion:
+    """Opaque version vector one versioned pull returns: the plan epoch it
+    was taken under plus one monotone version per owned block of the job
+    (packed layout order).  Hand it back as ``since_version`` to receive
+    only the blocks that changed."""
+
+    epoch: int
+    versions: np.ndarray  # int64, one per owned block, layout order
+
+
+@dataclass(frozen=True)
+class PullDiff:
+    """Result of ``pull(job_id, since_version=...)``: only the owned blocks
+    whose version moved past the client's vector, plus the new vector.
+
+    ``full=True`` is the fallback (first pull, plan-epoch mismatch, or a
+    stale or mismatched vector): ``data`` is the whole packed job vector.
+    Otherwise ``data`` is the ``(k, block)`` changed rows and
+    ``block_ids`` their job-local packed block indices; :meth:`apply`
+    patches them onto the client's previous packed vector.  ``bytes_wire``
+    is what this pull shipped under the fp32 wire model, ``bytes_full``
+    what a full pull would have.  ``data`` is always a new tensor, never
+    a view of live or published state."""
+
+    job_id: str
+    version: PullVersion
+    full: bool
+    block: int
+    block_ids: np.ndarray  # job-local packed block rows; empty when full
+    data: torch.Tensor  # (packed_len,) when full, else (k, block) rows
+    bytes_wire: int
+    bytes_full: int
+
+    def apply(self, prev_packed: torch.Tensor) -> torch.Tensor:
+        """Patch this diff onto the client's previous packed vector and
+        return the up-to-date packed vector: a new tensor when blocks
+        changed (the client's vector is left as it was, as the reference's
+        functional update leaves it), the client's vector itself when none
+        did, as in the reference."""
+        if self.full:
+            return self.data
+        if self.block_ids.size == 0:
+            return prev_packed
+        out = prev_packed.clone()
+        rows = host_to_device(self.block_ids, out.device, torch.int64)
+        out.view(-1, self.block)[rows] = self.data
+        return out
 
 
 def _copy_state(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -223,6 +282,19 @@ class ServiceTickEngine:
         self._failures = 0  # consecutive failed applies
         self._epoch = 0  # bumped per plan change; fences queued pushes
         self._queues: Dict[str, deque] = {}
+        # Diff-pull versions: one monotone version per ``block_align``
+        # block of the flat space, moved every applying tick; reset on
+        # plan changes (the vector carries the epoch, so a stale client
+        # falls back to a full pull).  Within an epoch every block is
+        # owned by one job, so a block's version is its job's last stamp:
+        # ticks stamp jobs (O(jobs)), and the per-block array is built
+        # only when read (``_versions_array``).
+        self._job_versions: Dict[str, int] = {}
+        self._block_versions: Optional[np.ndarray] = None  # read-only
+        self._version_clock = 0
+        # Read tier: a ReplicaSet registers here and is offered a
+        # publishable snapshot every applying tick.
+        self._replica_hub = None
         # Host mirror of state["counts"]: futures resolve from it.
         self._counts: Dict[str, int] = {}
         # Per-plan caches, invalidated on replans.
@@ -269,6 +341,14 @@ class ServiceTickEngine:
         self._snapshot = None
         self._snapshot_log = []
         self._ticks_since_snapshot = 0
+        # Block versions index the OLD geometry; the epoch bump already
+        # invalidates every held PullVersion, so restart the vector.
+        self._job_versions = {}
+        self._block_versions = None
+        if self._replica_hub is not None:
+            # Read-tier snapshots hold the old geometry too: the epoch
+            # fence marks them stale and the next serve resubscribes.
+            self._replica_hub.on_replan()
         if touched is None:
             if any(self._queues.values()):
                 raise RuntimeError("replan with queued pushes: the runtime "
@@ -325,22 +405,89 @@ class ServiceTickEngine:
 
     def pull(self, job_id: str, since_version=None):
         """The job's current parameters (a tree of copies).  A job
-        ``max_staleness`` steps ahead of the service forces ticks first."""
-        if since_version is not None:
-            raise _not_in_slice("versioned pulls (since_version, PullDiff)",
-                                "6")
+        ``max_staleness`` steps ahead of the service forces ticks first.
+
+        ``since_version`` switches to the versioned diff protocol: pass
+        the :class:`PullVersion` a previous versioned pull returned (or
+        ``0`` to bootstrap) and get a :class:`PullDiff` of only the owned
+        blocks whose version moved, plus the new vector.  A stale or
+        cross-epoch vector falls back to a full-payload diff."""
         if self.health == QUARANTINED:
+            # The state froze at the last-good snapshot: serving it as if
+            # live would feed the trainer stale parameters.  Read-tier
+            # replicas are the degraded-serving path.
             raise self.quarantine_error
         self._queue(job_id)  # validates the job id
         while self.outstanding(job_id) > self.max_staleness:
             self.stats.n_forced_staleness += 1
             self.tick()
+        if since_version is not None:
+            return self._pull_versioned(job_id, since_version)
         layout = self.plan.job_layout(job_id)
         self.stats.n_full_pulls += 1
         self.stats.pull_bytes_wire += 4 * layout.packed_len
         self.stats.pull_bytes_full += 4 * layout.packed_len
         return _unpack_slots(layout, self._pull_packed(job_id),
                              self.runtime._jobs[job_id]["abstract"])
+
+    # ----------------------------------------------------- versioned pulls
+    def _versions_array(self) -> np.ndarray:
+        """One version per ``block_align`` block of the flat space (0:
+        never stamped this epoch).  A read-only array, rebuilt after
+        every stamp, so a holder (a published snapshot) never sees it
+        change."""
+        plan = self.plan
+        nb = plan.total_len // plan.block_align
+        if self._block_versions is None or self._block_versions.size != nb:
+            versions = np.zeros(nb, np.int64)
+            for j, v in self._job_versions.items():
+                versions[plan.job_layout(j).blocks] = v
+            versions.flags.writeable = False
+            self._block_versions = versions
+        return self._block_versions
+
+    def _stamp_blocks(self, jobs) -> None:
+        """Advance the version clock and stamp every given job's owned
+        blocks: once per applying tick, and on rollback, so a rewound
+        block never looks unchanged to a diff client."""
+        if self.plan is None or not jobs:
+            return
+        self._version_clock += 1
+        for j in jobs:
+            self._job_versions[j] = self._version_clock
+        self._block_versions = None
+
+    def _pull_versioned(self, job_id: str, since) -> PullDiff:
+        layout = self.plan.job_layout(job_id)
+        blocks = layout.blocks
+        vers = np.full(blocks.size, self._job_versions.get(job_id, 0),
+                       np.int64)
+        version = PullVersion(epoch=self._epoch, versions=vers)
+        bytes_full = 4 * layout.packed_len
+        flat = self.runtime.state["flat"]
+        full = (not isinstance(since, PullVersion)
+                or since.epoch != self._epoch
+                or since.versions.size != vers.size)
+        if full:
+            diff = PullDiff(
+                job_id=job_id, version=version, full=True,
+                block=layout.block, block_ids=np.empty(0, np.int64),
+                data=_gather_owned(layout, flat), bytes_wire=bytes_full,
+                bytes_full=bytes_full)
+            self.stats.n_full_pulls += 1
+        else:
+            sel = np.nonzero(vers > since.versions)[0]
+            rows = host_to_device(blocks[sel], flat.device, torch.int64)
+            diff = PullDiff(
+                job_id=job_id, version=version, full=False,
+                block=layout.block, block_ids=sel.astype(np.int64),
+                data=flat.view(-1, layout.block)[rows],
+                bytes_wire=4 * int(sel.size) * layout.block,
+                bytes_full=bytes_full)
+            self.stats.n_diff_pulls += 1
+        self.stats.pull_bytes_wire += diff.bytes_wire
+        self.stats.pull_bytes_full += bytes_full
+        return diff
 
     def submit_push(self, job_id: str, grads) -> PushFuture:
         """Queue a job's gradient tree for the next tick; a full queue
@@ -421,7 +568,11 @@ class ServiceTickEngine:
         else:
             groups = [tuple(pending)]
         # Refresh the snapshot BEFORE any in-place apply.
-        self._maybe_snapshot()
+        snapped = self._maybe_snapshot()
+        if self._replica_hub is not None:
+            # Publish point for the read tier, at the rollback snapshot:
+            # on a refresh tick the hub publishes the clone just taken.
+            self._replica_hub.on_tick(None, snapped)
         applied = 0
         for key in groups:
             heads = [self._queues[j].popleft() for j in key]
@@ -459,6 +610,7 @@ class ServiceTickEngine:
                     fut._resolve(self._counts[j])
                 self._snapshot_log.append((j, packed, fut))
             applied += len(key)
+        self._stamp_blocks(pending)  # diff-pull clients see these as dirty
         self.stats.n_ticks += 1
         self.stats.n_applied += applied
         self.stats.n_launches += len(groups)
@@ -466,11 +618,13 @@ class ServiceTickEngine:
         return applied
 
     # ------------------------------------------------------- fault recovery
-    def _maybe_snapshot(self) -> None:
+    def _maybe_snapshot(self) -> bool:
         """Clone (state, counts mirror) as the rollback anchor, every
-        ``snapshot_interval`` applying ticks, before the in-place apply."""
+        ``snapshot_interval`` applying ticks, before the in-place apply.
+        Returns True when the anchor was refreshed by this call (the read
+        tier then publishes its clone instead of taking another)."""
         if self.snapshot_interval <= 0:
-            return
+            return False
         if (self._snapshot is None
                 or self._ticks_since_snapshot >= self.snapshot_interval):
             self._snapshot = (_copy_state(self.runtime.state),
@@ -478,14 +632,21 @@ class ServiceTickEngine:
             self._snapshot_log = []
             self._ticks_since_snapshot = 0
             self.stats.n_snapshots += 1
+            return True
+        return False
 
     def _rollback(self) -> None:
         """Install a CLONE of the snapshot (it stays pristine for another
-        rollback) and re-queue the logged pushes in front, per-job order
-        preserved, so later ticks replay the identical sequence."""
+        rollback, and the read tier may be serving its ``flat``) and
+        re-queue the logged pushes in front, per-job order preserved, so
+        later ticks replay the identical sequence."""
         state_copy, counts_copy = self._snapshot
         self.runtime.state = _copy_state(state_copy)
         self._counts = dict(counts_copy)
+        # The restore rewound every block the logged pushes touched:
+        # re-stamp them so a diff client that saw the undone values is
+        # told those blocks changed (versions only move forward).
+        self._stamp_blocks({j for j, _, _ in self._snapshot_log})
         # A replayed future stays done: its result was observable, and the
         # deterministic replay re-lands the identical update.
         for j, packed, fut in reversed(self._snapshot_log):

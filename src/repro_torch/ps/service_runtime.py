@@ -84,9 +84,12 @@ class ServiceRuntime:
     def debug_stats(self) -> Dict[str, Any]:
         """The plan-pair cache, this runtime's migration counters, the
         service's replan-transaction counters, the attached engine's
-        TickStats (None detached) and the fault injector's fire counts."""
+        TickStats (None detached), the fault injector's fire counts and
+        the read tier's per-replica ReadStats (None without a
+        ReplicaSet)."""
         engine = self._engine
         injector = engine.fault_injector if engine is not None else None
+        hub = getattr(engine, "_replica_hub", None)
         return {
             "plan_cache": plan_cache_stats(),
             "runtime": {
@@ -108,6 +111,7 @@ class ServiceRuntime:
                 "n_fired": injector.n_fired,
                 "by_kind": injector.fire_counts(),
             }),
+            "replicas": hub.stats() if hub is not None else None,
         }
 
     # ----------------------------------------------------------------- jobs

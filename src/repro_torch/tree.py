@@ -80,6 +80,15 @@ def array_to_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def cache_from_numpy(cache, device):
+    """A reference KV-cache tree (numpy or jax arrays, bfloat16 included)
+    as the port's: every array a tensor on ``device``, bit for bit, and
+    ``"length"`` (the reference's int32 scalar) a host int."""
+    return {k: (int(np.asarray(v)) if k == "length"
+                else tree_map(lambda x: array_to_tensor(x).to(device), v))
+            for k, v in cache.items()}
+
+
 def value_and_grad(fn: Callable[..., torch.Tensor]):
     """``jax.value_and_grad(fn)`` for a tree first argument: returns
     ``(loss, grads)`` with grads in the tree's structure.  Built on

@@ -268,7 +268,8 @@ def test_registry_and_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         ttf.init_params(cfg, device="meta")
     with pytest.raises(NotImplementedError, match="item 15"):
-        ttf.make_serve_step(tqwen.smoke_config())
+        ttf.make_serve_step(dataclasses.replace(tqwen.smoke_config(),
+                                                mla=object()))
     with pytest.raises(NotImplementedError, match="item 4"):
         truntime.make_ps_train_step(lambda p, b: 0, None, {},
                                     push_compression="int8")
