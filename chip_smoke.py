@@ -9,7 +9,11 @@ the paper workloads' full tensor inventories:
      launch of the multi-job Adam kernel per tick);
   b. AWD-LM arrives: a delta replan moves the touched blocks through the
      relayout kernels; 8 ticks with four jobs;
-  c. AWD-LM leaves: another delta replan; 8 ticks;
+  c. AWD-LM leaves: another delta replan; 8 ticks; before the last, the
+     unfused ``multi_job_adam_update`` (the packed multi-job Adam kernel,
+     K4) on a clone of the state with that tick's pushes, p full and p
+     packed, its outputs scattered onto their rows and held against the
+     state the fused tick leaves, bit for bit;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
      with the block kernel;
@@ -46,7 +50,23 @@ and serving of the same model (seeded random bf16 weights):
      ``attn_chunk_k`` 1024, bf16; batch cut from 32 to 1): 3 timed
      prefills, 24 launches of the flash attention kernel each; the
      last-token logits held against the same prefill through the plain
-     ``chunked_attention``.
+     ``chunked_attention``;
+
+and the recsys family at its published widths (seeded random weights):
+
+  i. DLRM-RM2 (26 tables, 54,072,832 padded rows x 64 float32, 13.84 GB)
+     through ``launch/train.build`` at the train_batch cell's 65,536:
+     10 steps of ``adagrad(0.01)``, 26 launches of the embedding-bag
+     kernel (K6) a step, one per field; the first step's loss, gradients
+     and updated leaves held against the same step through K6's plain
+     version, and two identical backward passes against each other, bit
+     for bit;
+  j. DLRM-RM2 scoring under ``torch.inference_mode()``: ``dlrm_forward``
+     at serve_p99 (512) and serve_bulk (262,144), ``dlrm_retrieval`` of
+     one user against retrieval_cand's 1,000,000 candidates;
+  k. SASRec and DIEN at the train_batch cell's 65,536 through
+     ``launch/train.build``: 3 steps of adam(1e-3) each (plain PyTorch;
+     no TPU kernel in either package).
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -60,7 +80,10 @@ flash attention kernel is also held against its plain version at the
 prefill's layer shape (bf16: every element within rtol 1e-2 plus a small
 atol, and every query row of every head within 1e-2 relative L2 error;
 see K7_BF16_RTOL) and on small float32 (rtol/atol 2e-5) and bf16 cases
-(non-causal, ragged S, GQA, head dim 128, an unaligned view).  Launch
+(non-causal, ragged S, GQA, head dim 128, an unaligned view).  K6 is
+held against its plain version bit for bit at phase i's lookup and at
+multi-hot (L = 20), D = 18 and 50 (its scalar path), bfloat16 and
+unaligned-view shapes, each timed beside ``F.embedding_bag``.  Launch
 counters are set to 0 before each phase and read after it.  Any failed
 check raises.
 
@@ -72,7 +95,8 @@ limit, and as the last line
 Run from the repository root: ``python3 chip_smoke.py``.  Without CUDA,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  ``--scale 0.001`` rehearses the phases on the card on smaller
-tensors; a rehearsal prints no result and exits 2.
+tensors (phases e-h and i-k on the smoke configs); a rehearsal prints no
+result and exits 2.
 """
 
 from __future__ import annotations
@@ -100,6 +124,7 @@ ULP_BUDGET = 1  # plain vs kernel: same operation order, correctly rounded
 QWEN_BATCH, QWEN_SEQ, QWEN_LR = 8, 512, 3e-4
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 128
 PREFILL_SEQ = 32768  # the prefill_32k cell (repro/arch.py), batch cut to 1
+DLRM_STEPS = 10
 # K7 against its plain version.  float32 (the SIMT kernel): rtol = atol =
 # 2e-5, the reference kernel tests' own.  bfloat16 (the tensor-core
 # kernel): each output element within rtol 1e-2 (above one bf16 ulp,
@@ -298,20 +323,29 @@ def read_counters(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
 
 
-def run_ticks(s: Service, n: int, check_tick: bool):
+def run_ticks(s: Service, n: int, check_tick: bool, k4: bool = False):
     """``n`` ticks, each timed on the host clock to a synchronize; with
-    ``check_tick`` the last one is also held against the plain update."""
+    ``check_tick`` the last one is also held against the plain update.
+    With ``k4``, before the last tick the unfused ``multi_job_adam_update``
+    (K4) runs on a clone of the state with the tick's pushes, p full and p
+    packed, each held against K4's plain version bit for bit; after the
+    tick its outputs, scattered onto their rows, must equal the state the
+    fused K1 tick left, bit for bit.  Returns (tick times, K4's largest
+    difference from its plain version or None)."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
     from repro_torch.kernels.agg_adam import ref as agg_ref
 
-    times = []
+    times, k4_err = [], None
     for i in range(n):
         gs = s.push_all()
-        before = None
+        before = k4_out = None
         if check_tick and i == n - 1:
             jobs = s.rt.job_ids
             before = state_clone(s.rt.state)
             tables = s.tick_tables(
                 jobs, [s.rt.state["counts"][j] + 1 for j in jobs])
+            if k4:
+                k4_out, k4_err = k4_tick_check(s, before, gs, jobs, tables)
         sync(s.device)
         t0 = time.perf_counter()
         if s.eng.tick() != len(gs):
@@ -327,8 +361,57 @@ def run_ticks(s: Service, n: int, check_tick: bool):
                 u = ulp_diff(s.rt.state[k], before[k])
                 if u > ULP_BUDGET:
                     raise AssertionError(f"tick vs plain update: {k} {u} ulp")
-            del before
-    return times
+            if k4_out is not None:
+                # ``before`` differs from the state only on owned rows,
+                # which the scatter overwrites.
+                for k, packed in zip(("flat", "mu", "nu"), k4_out):
+                    got = agg_ops.scatter_rows(before[k], packed, tables[1],
+                                               s.rt.plan.block_align)
+                    if not bits_equal(got, s.rt.state[k]):
+                        raise AssertionError(
+                            f"K4 + scatter_rows vs the K1 tick: {k} differs "
+                            f"(max abs {max_abs(got, s.rt.state[k])})")
+            del before, k4_out
+    return times, k4_err
+
+
+def k4_tick_check(s: Service, before, gs, jobs, tables):
+    """K4 through its entry point, ``multi_job_adam_update``, on a clone of
+    the state before a tick, with the tick's pushes: p full and p packed,
+    each equal to K4's plain version bit for bit.  Returns (the full-p
+    run's packed outputs, the largest difference from the plain version)."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.agg_adam import ref as agg_ref
+    from repro_torch.ps.engine import _flat_job_hp, _fused_tables
+
+    plan = s.rt.plan
+    block = plan.block_align
+    block_idx, sizes, (lr, b1, b2, eps) = _fused_tables(
+        [plan.job_layout(j) for j in jobs], [s.rt._jobs[j] for j in jobs],
+        _flat_job_hp)
+    counts = [s.rt.state["counts"][j] + 1 for j in jobs]
+    hp, bi, slot = tables
+    g_cat = torch.cat([gs[j] for j in jobs])
+    packed_p = before["flat"].view(-1, block)[bi.long()].reshape(-1)
+    err, out = 0.0, None
+    for p_packed, p in ((False, before["flat"]), (True, packed_p)):
+        kern = agg_ops.multi_job_adam_update(
+            p, [gs[j] for j in jobs], before["mu"], before["nu"], counts,
+            block_idx=block_idx, job_sizes=sizes, block=block,
+            p_packed=p_packed, lr=lr, b1=b1, b2=b2, eps=eps)
+        plain = agg_ref.aggregate_adam_multijob_plain(
+            p, g_cat, before["mu"], before["nu"], hp, bi, slot, block=block,
+            p_packed=p_packed)
+        err = max(err, max(max_abs(a, b) for a, b in zip(kern, plain)))
+        if not all(bits_equal(a, b) for a, b in zip(kern, plain)):
+            raise AssertionError(f"K4 (p_packed={p_packed}) differs from its "
+                                 f"plain version: max abs {err}")
+        del plain
+        if not p_packed:
+            out = kern
+        del kern
+    del packed_p, g_cat
+    return out, err
 
 
 def replan(s: Service, what: str, fn):
@@ -420,6 +503,33 @@ def k1_entry(s: Service, device):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=None, max_abs_err=err, max_ulp=ulp,
                 shape=f"N={plan.total_len} M={m} K={len(jobs)}")
+
+
+def k4_entry(s: Service, device, err):
+    """K4 at the 3-job tick's shapes (p full), on the live state (K4 only
+    reads it), timed beside its plain version; ``err`` is the phase-c
+    check's largest difference from the plain version."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.agg_adam import ref as agg_ref
+
+    jobs = s.rt.job_ids
+    plan = s.rt.plan
+    hp, bi, slot = s.tick_tables(
+        jobs, [s.rt.state["counts"][j] + 1 for j in jobs])
+    block = plan.block_align
+    m = int(bi.numel()) * block
+    g = torch.cat([s.grad(j) for j in jobs])
+    st = s.rt.state
+    args = (st["flat"], g, st["mu"], st["nu"], hp, bi, slot)
+    ms = time_ms(lambda: agg_ops.aggregate_adam_multijob(
+        *args, block=block, p_packed=False), device)
+    plain_ms = time_ms(lambda: agg_ref.aggregate_adam_multijob_plain(
+        *args, block=block, p_packed=False), device, reps=3, warmup=1)
+    nbytes = m * (12 + 4 + 12) + 8 * bi.numel() + hp.numel() * 4
+    b, by = bound_ms(nbytes, m * ADAM_FLOPS_PER_LANE)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None, max_abs_err=err, max_ulp=0,
+                shape=f"N={plan.total_len} M={m} K={len(jobs)} p full")
 
 
 def k3_entry(s: Service, device, job="vgg19"):
@@ -1161,6 +1271,255 @@ def k7_small_checks(device):
           flush=True)
 
 
+# ------------------------------------------------------ the recsys phases
+def grads_bits_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves_by_key
+
+    la, lb = tree_leaves_by_key(a), tree_leaves_by_key(b)
+    return la.keys() == lb.keys() and all(bits_equal(la[k], lb[k])
+                                          for k in la)
+
+
+def dlrm_train_phase(device, wrappers, full):
+    """Phase i: DLRM-RM2 through ``launch/train.build`` (adagrad(0.01)),
+    DLRM_STEPS steps at the train_batch cell's batch.  Before them, on the
+    first step's inputs: the loss and every gradient twice through K6
+    (equal bit for bit) and once through its plain version (the loss and
+    the gradients bit for bit), then that step's Adagrad update from each
+    route's gradients, leaf by leaf on clones, bit for bit.  Returns
+    (counters, config, trained params, the first batch)."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdagradState
+    from repro_torch.tree import tree_leaves_by_key, value_and_grad
+
+    t_start = time.perf_counter()
+    cfg = dlrm_rm2.config() if full else dlrm_rm2.smoke_config()
+    batch = dlrm_rm2.TRAIN_BATCH if full else 256
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step, batch_fn, _ = train.build("dlrm-rm2", not full, batch,
+                                                0, device)
+    state = init_state()
+    batches = [batch_fn() for _ in range(DLRM_STEPS)]
+    sync(device)
+    init_s = time.perf_counter() - t_start
+    params, opt_state = state["params"], state["opt"]
+    table_gb = sum(t.numel() * t.element_size()
+                   for t in params["tables"]) / 1e9
+    grad = {lk: value_and_grad(lambda p, b, lk=lk: recsys.dlrm_loss(
+        cfg, p, b, lookup=lk)) for lk in ("kernel", "plain")}
+    loss_k, g_k = grad["kernel"](params, batches[0])
+    loss_2, g_2 = grad["kernel"](params, batches[0])
+    if not (bits_equal(loss_k, loss_2) and grads_bits_equal(g_k, g_2)):
+        raise AssertionError("phase i: two identical backward passes differ")
+    del g_2
+    loss_p, g_p = grad["plain"](params, batches[0])
+    if not (bits_equal(loss_k, loss_p) and grads_bits_equal(g_k, g_p)):
+        raise AssertionError("phase i: the K6 step's loss or gradients "
+                             "differ from the plain lookup's")
+    # The update from each route's gradients, one leaf at a time: a
+    # second copy of the tables and accumulators would not fit beside
+    # them and the two gradient trees.
+    opt = train._recsys(cfg, None, 0)[0]
+    accum = tree_leaves_by_key(opt_state.accum)
+    gk, gp = tree_leaves_by_key(g_k), tree_leaves_by_key(g_p)
+    for k, p in tree_leaves_by_key(params).items():
+        outs = []
+        for g in (gk[k], gp[k]):
+            pc, ac = p.clone(), accum[k].clone()
+            opt.step({"x": pc}, {"x": g}, AdagradState({"x": ac}, 0))
+            outs.append((pc, ac))
+        if not all(bits_equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"phase i: the updated {k} differs between "
+                                 f"the K6 and the plain lookup's step")
+        del outs
+    del g_k, g_p, gk, gp, accum
+    check_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(step, state, batches, device)
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    if counts["embed_bag"] != DLRM_STEPS * cfg.n_sparse:
+        raise AssertionError(f"phase i: {counts['embed_bag']} K6 launches "
+                             f"for {DLRM_STEPS} steps of {cfg.n_sparse} "
+                             f"fields")
+    if losses[0] != float(loss_k):
+        raise AssertionError(f"phase i: the first step's loss {losses[0]} "
+                             f"is not the checked {float(loss_k)}")
+    check_losses("i", losses)
+    med = statistics.median(times)
+    print(f"phase i (DLRM-RM2 train, {cfg.name}: {cfg.n_sparse} tables, "
+          f"{cfg.table_rows} padded rows x {cfg.embed_dim} {cfg.dtype}, "
+          f"{table_gb:.2f} GB; batch={batch}, adagrad(0.01)): steps="
+          f"{len(times)} step_ms_median={med:.2f} step_ms_first="
+          f"{times[0]:.2f} items_per_s={batch / med * 1e3:.0f} loss_first="
+          f"{losses[0]:.5f} loss_last={losses[-1]:.5f} counters={counts} "
+          f"k6_per_step={counts['embed_bag'] // DLRM_STEPS} "
+          f"max_memory_allocated_gb={peak / 1e9:.2f} (the checks: "
+          f"{check_peak / 1e9:.2f}) first_step_vs_plain_lookup: loss, "
+          f"gradients and updated leaves bit for bit; two backward passes "
+          f"bit for bit; init_s={init_s:.2f} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts, cfg, state["params"], batches[0]
+
+
+def dlrm_score_phase(cfg, params, device, wrappers, full):
+    """Phase j: ``dlrm_forward`` at the serve_p99 and serve_bulk cells'
+    batches and ``dlrm_retrieval`` at retrieval_cand's candidates, under
+    ``torch.inference_mode()``; the serve_p99 logits held against the
+    plain lookup's bit for bit.  Returns the counters."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys
+
+    sizes = ((dlrm_rm2.SERVE_P99, dlrm_rm2.SERVE_BULK,
+              dlrm_rm2.RETRIEVAL_CAND) if full else (64, 512, 1000))
+    rng = np.random.default_rng(3)
+    host = {n: recsys_batch(rng, n, cfg.n_dense, cfg.vocab_sizes)
+            for n in sizes[:2]}
+    cand = torch.from_numpy(rng.integers(0, cfg.vocab_sizes[-1], sizes[2],
+                                         dtype=np.int32)).to(device)
+    out = []
+    with torch.inference_mode():
+        dev = {n: {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for n, b in host.items()}
+        p99 = dev[sizes[0]]
+        want = recsys.dlrm_forward(cfg, params, p99["dense"], p99["sparse"],
+                                   lookup="plain")
+        got = recsys.dlrm_forward(cfg, params, p99["dense"], p99["sparse"])
+        if not bits_equal(got, want):
+            raise AssertionError("phase j: serve_p99 logits differ from the "
+                                 "plain lookup's")
+        sync(device)
+        reset_counters(wrappers)
+        runs = {"serve_p99": (sizes[0], 10), "serve_bulk": (sizes[1], 3),
+                "retrieval_cand": (sizes[2], 3)}
+        for cell, (n, reps) in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                sync(device)
+                t0 = time.perf_counter()
+                if cell == "retrieval_cand":
+                    b = dev[sizes[0]]
+                    logits = recsys.dlrm_retrieval(
+                        cfg, params, b["dense"][:1], b["sparse"][:1, :-1],
+                        cand)
+                else:
+                    b = dev[n]
+                    logits = recsys.dlrm_forward(cfg, params, b["dense"],
+                                                 b["sparse"])
+                sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if logits.shape != (n,) or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"phase j {cell}: logits of shape "
+                                     f"{tuple(logits.shape)}, finite="
+                                     f"{bool(torch.isfinite(logits).all())}")
+            med = statistics.median(times)
+            out.append(f"{cell} batch={n} ms_median={med:.3f} (of {reps}) "
+                       f"items_per_s={n / med * 1e3:.0f} peak_gb="
+                       f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+            del logits
+    counts = read_counters(wrappers)
+    if counts["embed_bag"] != cfg.n_sparse * sum(r for _, r in runs.values()):
+        raise AssertionError(f"phase j: {counts['embed_bag']} K6 launches")
+    print(f"phase j (DLRM-RM2 scoring, inference_mode): {'; '.join(out)} "
+          f"counters={counts} p99_vs_plain_lookup=bit_for_bit", flush=True)
+    return counts
+
+
+def recsys_train_phase(arch, batch, device, full, steps=3):
+    """Phase k: ``steps`` steps of ``launch/train.build(arch)`` (adam(1e-3);
+    plain PyTorch, no TPU kernel in either package); losses finite."""
+    from repro_torch.launch import train
+
+    t_start = time.perf_counter()
+    init_state, step, batch_fn, _ = train.build(arch, not full, batch, 0,
+                                                device)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state()
+    batches = [batch_fn() for _ in range(steps)]
+    state, times, losses = timed_steps(step, state, batches, device)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase k {arch}: losses not finite: {losses}")
+    med = statistics.median(times)
+    print(f"phase k ({arch} train, batch={batch}, adam(1e-3)): steps={steps} "
+          f"step_ms_median={med:.2f} step_ms_first={times[0]:.2f} "
+          f"items_per_s={batch / med * 1e3:.0f} losses="
+          f"{[round(l, 5) for l in losses]} max_memory_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+
+
+def k6_bound(b, n_len, d, elem):
+    """Least time for one K6 call: every looked-up row read once, the ids
+    read once, the (B, D) float32 sums written once; B L D adds."""
+    return bound_ms(b * n_len * d * elem + b * n_len * 4 + b * d * 4,
+                    b * n_len * d)
+
+
+def k6_entries(device, table, field_ids, full):
+    """K6 against its plain version, bit for bit, at phase i's lookup
+    (one field of the train batch on the largest table: L = 1, D = 64,
+    float32), then multi-hot bags (L = 20) on that table, D = 18 and 50
+    (the scalar path), a bfloat16 copy, and an unaligned view; each timed
+    beside its plain version and ``F.embedding_bag(mode="sum")``.  Returns
+    phase i's shape's entry."""
+    from repro_torch.kernels.embed_bag import ops as eb_ops
+    from repro_torch.kernels.embed_bag import ref as eb_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    b = field_ids.shape[0]
+    v = table.shape[0]
+    small_v = 1_000_000 if full else 1000
+    multi = torch.randint(0, v, (b, 20), generator=gen, device=device,
+                          dtype=torch.int32)
+    small = torch.randint(0, small_v, (b, 20), generator=gen, device=device,
+                          dtype=torch.int32)
+    buf = torch.empty(table.numel() + 1, device=device)
+    unaligned = buf[1:].view(table.shape)  # 4 bytes past 16-byte alignment
+    unaligned.copy_(table)
+    cases = {
+        "phase i field (L=1)": (table, field_ids[:, None]),
+        "multi-hot L=20": (table, multi),
+        "D=18 L=20": (torch.randn(small_v, 18, generator=gen, device=device),
+                      small),
+        "D=50 L=20": (torch.randn(small_v, 50, generator=gen, device=device),
+                      small),
+        "bf16 L=20": (table.bfloat16(), multi),
+        "unaligned view L=20": (unaligned, multi),
+    }
+    main = None
+    for name, (t, idx) in cases.items():
+        kern = eb_ops.embedding_bag(t, idx)
+        plain = eb_ref.embedding_bag_plain(t, idx)
+        err = max_abs(kern, plain)
+        if not bits_equal(kern, plain):
+            raise AssertionError(f"K6 {name}: differs from its plain version "
+                                 f"(max abs {err})")
+        del kern, plain
+        ms = time_ms(lambda: eb_ops.embedding_bag(t, idx), device)
+        plain_ms = time_ms(lambda: eb_ref.embedding_bag_plain(t, idx), device)
+        library_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, t, mode="sum"), device)
+        bnd, by = k6_bound(b, idx.shape[1], t.shape[1], t.element_size())
+        e = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                 library_ms=library_ms, max_abs_err=err, max_ulp=0,
+                 shape=f"B={b} L={idx.shape[1]} D={t.shape[1]} V={t.shape[0]}"
+                       f" {str(t.dtype)[6:]}")
+        print(f"K6 {name}: {e['shape']} bit_for_bit=True ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bnd:.4f} ({by}) of_bound={bnd / ms:.3f}",
+              flush=True)
+        if main is None:
+            main = e
+    del cases, buf, unaligned
+    return main
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1175,10 +1534,12 @@ def main() -> int:
     _import_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.embed_bag import ops as eb_ops
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.relayout import ops as rl_ops
 
     device = torch.device("cuda:0")
+    t_script = time.perf_counter()
     scale = args.scale
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,10 +1560,12 @@ def main() -> int:
     wrappers = {
         "agg_adam_multijob_fused": agg_ops.aggregate_adam_multijob_fused,
         "agg_adam_blocks": agg_ops.aggregate_adam_blocks,
+        "agg_adam_multijob": agg_ops.aggregate_adam_multijob,
         "relayout_stage": rl_ops.relayout_stage,
         "relayout_scatter": rl_ops.relayout_scatter,
         "agg_adam_dense": agg_ops.aggregate_adam,
         "flash_attention": fa_ops.flash_attention,
+        "embed_bag": eb_ops.embedding_bag,
     }
     totals = dict.fromkeys(wrappers, 0)
 
@@ -1226,7 +1589,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     stats0 = dataclasses.replace(s.eng.stats)
     reset_counters(wrappers)
-    times = run_ticks(s, 8, check_tick=True)
+    times, _ = run_ticks(s, 8, check_tick=True)
     counts = read_counters(wrappers)
     _require(counts, ("agg_adam_multijob_fused",), "a")
     add_totals(counts)
@@ -1239,7 +1602,7 @@ def main() -> int:
     reset_counters(wrappers)
     before, old, new, delta, timings = replan(
         s, "arrival", lambda: s.add("awd-lm"))
-    times = run_ticks(s, 8, check_tick=True)
+    times, _ = run_ticks(s, 8, check_tick=True)
     counts = read_counters(wrappers)
     _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
                       "relayout_scatter"), "b")
@@ -1265,10 +1628,10 @@ def main() -> int:
     before, old, new, delta, timings = replan(
         s, "exit", lambda: s.rt.remove_job("awd-lm"))
     del before
-    times = run_ticks(s, 8, check_tick=True)
+    times, k4_err = run_ticks(s, 8, check_tick=True, k4=True)
     counts = read_counters(wrappers)
     _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
-                      "relayout_scatter"), "c")
+                      "relayout_scatter", "agg_adam_multijob"), "c")
     add_totals(counts)
     print(phase_line(
         "c (AWD-LM leaves)", times, stats0, s.eng.stats, counts,
@@ -1277,6 +1640,10 @@ def main() -> int:
         f"touched_jobs={list(delta.touched_jobs)} touched_blocks="
         f"{delta.touched_blocks.size}{timings}"), flush=True)
     entries["agg_adam_blocks"] = k3_entry(s, device)
+    entries["agg_adam_multijob"] = k4_entry(s, device, k4_err)
+    print(f"K4 in phase c's last tick (multi_job_adam_update, p full and p "
+          f"packed): equal to its plain version bit for bit; scattered onto "
+          f"its rows, equal to the K1 tick's state bit for bit", flush=True)
     print(f"engine stats: {s.rt.debug_stats()['engine']}", flush=True)
     del s
 
@@ -1332,6 +1699,30 @@ def main() -> int:
         device, (1, seq, cfg.n_heads, cfg.head_dim))
     k7_small_checks(device)
 
+    # ---- phases i-k: the recsys family, DLRM-RM2 at its published widths
+    full = scale == 1.0
+    counts_i, rm2, params, batch0 = dlrm_train_phase(device, wrappers, full)
+    _require(counts_i, ("embed_bag",), "i")
+    add_totals(counts_i)
+    counts_j = dlrm_score_phase(rm2, params, device, wrappers, full)
+    _require(counts_j, ("embed_bag",), "j")
+    add_totals(counts_j)
+    largest = int(np.argmax(rm2.vocab_sizes))
+    entries["embed_bag"] = k6_entries(device, params["tables"][largest],
+                                      batch0["sparse"][:, largest].contiguous(),
+                                      full)
+    del params, batch0
+    torch.cuda.empty_cache()
+    from repro_torch.configs import dlrm_rm2
+
+    reset_counters(wrappers)
+    for arch in ("sasrec", "dien"):
+        recsys_train_phase(arch, dlrm_rm2.TRAIN_BATCH if full else 64,
+                           device, full)
+    if any(read_counters(wrappers).values()):
+        raise AssertionError("phase k launched a kernel: SASRec and DIEN "
+                             "run none in either package")
+
     # ---- report
     k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
     rl_src = "src/repro_torch/kernels/relayout/csrc/relayout.cu"
@@ -1355,10 +1746,17 @@ def main() -> int:
         "agg_adam_dense:ps_flat": (
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
             counts_f["agg_adam_dense"]),
+        "agg_adam_multijob": (
+            k1_src, "src/repro/kernels/agg_adam/kernel.py:276",
+            totals["agg_adam_multijob"]),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
             "src/repro/kernels/flash_attn/kernel.py:65",
             counts_h["flash_attention"]),  # phase h: at the entry's shape
+        "embed_bag": (
+            "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
+            "src/repro/kernels/embed_bag/kernel.py:34",
+            totals["embed_bag"]),  # phases i and j
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():
@@ -1376,6 +1774,8 @@ def main() -> int:
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the "
+          f"card check to the report, the build included", flush=True)
     if scale != 1.0:
         print(f"rehearsal at scale {scale} finished: no result",
               file=sys.stderr)

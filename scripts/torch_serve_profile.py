@@ -47,15 +47,16 @@ CLASSES = (  # (class, pattern on the kernel name), first match wins
 )
 
 
-def kernel_class(name: str) -> str:
-    for cls, pat in CLASSES:
+def kernel_class(name: str, classes=CLASSES) -> str:
+    for cls, pat in classes:
         if re.search(pat, name, re.I):
             return cls
     return "other"
 
 
-def trace(fn, n, device, label):
-    """Trace ``n`` calls of ``fn``; print the breakdown per call."""
+def trace(fn, n, device, label, classes=CLASSES):
+    """Trace ``n`` calls of ``fn``; print the breakdown per call, the
+    kernels grouped by the first matching (class, name pattern)."""
     from torch.profiler import ProfilerActivity, profile
 
     cs.sync(device)
@@ -81,7 +82,7 @@ def trace(fn, n, device, label):
         return
     by_class = collections.Counter()
     for name, ms in by_name.items():
-        by_class[kernel_class(name)] += ms / n
+        by_class[kernel_class(name, classes)] += ms / n
     for cls, ms in by_class.most_common():
         print(f"  class {cls}: {ms:.3f} ms ({ms / busy:.1%} of busy)")
     for name, ms in by_name.most_common(10):

@@ -31,7 +31,8 @@ FAMILIES: Dict[str, str] = {
     "dlrm-rm2": "recsys", "sasrec": "recsys", "dien": "recsys",
     "dlrm-mlperf": "recsys",
 }
-PORTED = frozenset({"qwen1.5-0.5b"})
+PORTED = frozenset({"qwen1.5-0.5b", "dlrm-rm2", "sasrec", "dien",
+                    "dlrm-mlperf"})
 
 
 def _module(arch: str):

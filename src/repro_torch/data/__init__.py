@@ -1,3 +1,3 @@
 """Synthetic batch generators (numpy, host side)."""
 
-from .synthetic import lm_batch  # noqa: F401
+from .synthetic import dien_batch, lm_batch, recsys_batch, sasrec_batch  # noqa: F401

@@ -1,10 +1,13 @@
 // Adam kernels of the aggregation service, for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of src/repro/kernels/agg_adam/kernel.py:
+// Replaces four Pallas TPU kernels of src/repro/kernels/agg_adam/kernel.py:
 //   agg_adam_multijob_fused  <- aggregate_adam_multijob_fused (K1): one
 //       service tick, K jobs' owned blocks updated in place in one launch;
 //   agg_adam_blocks          <- aggregate_adam_blocks (K3): one job's owned
 //       blocks, packed outputs (the per-job block step);
+//   agg_adam_multijob        <- aggregate_adam_multijob (K4): K1's grid and
+//       hyperparameter rows with K3's packed outputs (the unfused
+//       multi-job update, ops.multi_job_adam_update);
 //   agg_adam_dense           <- aggregate_adam (K5): dense Adam over a whole
 //       (N,) tensor in place, p float32 or bfloat16, gradients (N,) or
 //       (W, N) float32 or bfloat16 (the fused optimizer and the single-job
@@ -139,16 +142,20 @@ __global__ void multijob_fused_kernel(float* p, float* mu, float* nu,
                      p + dst, mu + dst, nu + dst, block, threadIdx.x & 31);
 }
 
+// K3 and K4: packed outputs, tile i written at i * block.  K3 passes no
+// job_slot (every tile takes hp row 0); K4 takes row job_slot[tile].
 template <bool kVec>
-__global__ void blocks_kernel(const float* p, int p_packed, const float* g,
+__global__ void packed_kernel(const float* p, int p_packed, const float* g,
                               long long m, int w, const float* mu,
                               const float* nu, const float* hp,
-                              const int* block_idx, long long n_own, int block,
-                              float* out_p, float* out_mu, float* out_nu) {
+                              const int* block_idx, const int* job_slot,
+                              long long n_own, int block, float* out_p,
+                              float* out_mu, float* out_nu) {
   const long long tile =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (tile >= n_own) return;
-  const Hp h = load_hp(hp);
+  const long long row = job_slot == nullptr ? 0 : job_slot[tile];
+  const Hp h = load_hp(hp + row * kHpCols);
   const long long own = (long long)block_idx[tile] * block;
   const long long packed = tile * block;
   update_block<kVec>(h, p + (p_packed ? packed : own), mu + own, nu + own, g,
@@ -272,6 +279,37 @@ inline unsigned grid_for(long long n_own) {
   return (unsigned)((n_own + kWarpsPerCta - 1) / kWarpsPerCta);
 }
 
+inline int launch_packed(const void* p, int p_packed, const void* g,
+                         long long m, int w, const void* mu, const void* nu,
+                         const void* hp, const void* block_idx,
+                         const void* job_slot, long long n_own, int block,
+                         void* out_p, void* out_mu, void* out_nu, int vec,
+                         void* stream) {
+  if (n_own > 0) {
+    const dim3 grid(grid_for(n_own)), cta(32 * kWarpsPerCta);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto* pf = static_cast<const float*>(p);
+    auto* gf = static_cast<const float*>(g);
+    auto* muf = static_cast<const float*>(mu);
+    auto* nuf = static_cast<const float*>(nu);
+    auto* hpf = static_cast<const float*>(hp);
+    auto* bi = static_cast<const int*>(block_idx);
+    auto* js = static_cast<const int*>(job_slot);
+    auto* op = static_cast<float*>(out_p);
+    auto* om = static_cast<float*>(out_mu);
+    auto* on = static_cast<float*>(out_nu);
+    if (vec)
+      packed_kernel<true><<<grid, cta, 0, s>>>(pf, p_packed, gf, m, w, muf, nuf,
+                                               hpf, bi, js, n_own, block, op,
+                                               om, on);
+    else
+      packed_kernel<false><<<grid, cta, 0, s>>>(pf, p_packed, gf, m, w, muf,
+                                                nuf, hpf, bi, js, n_own, block,
+                                                op, om, on);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int agg_adam_multijob_fused(void* p, void* mu, void* nu,
@@ -307,28 +345,19 @@ extern "C" int agg_adam_blocks(const void* p, int p_packed, const void* g,
                                const void* block_idx, long long n_own,
                                int block, void* out_p, void* out_mu,
                                void* out_nu, int vec, void* stream) {
-  if (n_own > 0) {
-    const dim3 grid(grid_for(n_own)), cta(32 * kWarpsPerCta);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    auto* pf = static_cast<const float*>(p);
-    auto* gf = static_cast<const float*>(g);
-    auto* muf = static_cast<const float*>(mu);
-    auto* nuf = static_cast<const float*>(nu);
-    auto* hpf = static_cast<const float*>(hp);
-    auto* bi = static_cast<const int*>(block_idx);
-    auto* op = static_cast<float*>(out_p);
-    auto* om = static_cast<float*>(out_mu);
-    auto* on = static_cast<float*>(out_nu);
-    if (vec)
-      blocks_kernel<true><<<grid, cta, 0, s>>>(pf, p_packed, gf, m, w, muf, nuf,
-                                               hpf, bi, n_own, block, op, om,
-                                               on);
-    else
-      blocks_kernel<false><<<grid, cta, 0, s>>>(pf, p_packed, gf, m, w, muf,
-                                                nuf, hpf, bi, n_own, block, op,
-                                                om, on);
-  }
-  return (int)cudaGetLastError();
+  return launch_packed(p, p_packed, g, m, w, mu, nu, hp, block_idx, nullptr,
+                       n_own, block, out_p, out_mu, out_nu, vec, stream);
+}
+
+extern "C" int agg_adam_multijob(const void* p, int p_packed, const void* g,
+                                 long long m, int w, const void* mu,
+                                 const void* nu, const void* hp,
+                                 const void* block_idx, const void* job_slot,
+                                 long long n_own, int block, void* out_p,
+                                 void* out_mu, void* out_nu, int vec,
+                                 void* stream) {
+  return launch_packed(p, p_packed, g, m, w, mu, nu, hp, block_idx, job_slot,
+                       n_own, block, out_p, out_mu, out_nu, vec, stream);
 }
 
 extern "C" int agg_adam_dense(void* p, int p_bf16, const void* g, int g_bf16,

@@ -136,13 +136,9 @@ def aggregate_adam_multijob_fused(p, g, mu, nu, hp, block_idx, job_slot, *,
 aggregate_adam_multijob_fused.launches = 0
 
 
-def aggregate_adam_blocks(p, g, mu, nu, hp, block_idx, *, block: int,
-                          p_packed: bool):
-    """K3, one job's block step: Adam over the owned blocks ``block_idx``
-    of the FULL mu/nu (N,), with p full (N,) or packed (M,) as
-    ``p_packed`` says (explicit: when the job owns every block M == N and
-    the two layouts differ only in order) and hp the job's
-    ``(1, HP_COLS)`` row.  Returns PACKED (new_p, new_mu, new_nu)."""
+def _check_packed(p, g, mu, nu, hp, block_idx, job_slot, block: int,
+                  p_packed: bool) -> None:
+    """Shapes, dtypes and devices of K3's and K4's arguments."""
     device = mu.device
     n = mu.shape[-1]
     n_own = int(block_idx.shape[0])
@@ -157,31 +153,76 @@ def aggregate_adam_blocks(p, g, mu, nu, hp, block_idx, *, block: int,
     if g.dim() not in (1, 2) or g.shape[-1] != m:
         raise ValueError(f"g must be (M,) or (W, M) with M = {m}, "
                          f"got {tuple(g.shape)}")
-    if hp.shape != (1, HP_COLS):
-        raise ValueError(f"hp must be (1, {HP_COLS}), got {tuple(hp.shape)}")
+    if hp.dim() != 2 or hp.shape[1] != HP_COLS:
+        raise ValueError(f"hp must be (K, {HP_COLS}), got {tuple(hp.shape)}")
     _check_i32("block_idx", block_idx, n_own, device)
-    if device.type == "cpu":
-        return ref.aggregate_adam_blocks_plain(
-            p, g, mu, nu, hp, block_idx, block=block, p_packed=p_packed)
+    if job_slot is not None:
+        _check_i32("job_slot", job_slot, n_own, device)
+
+
+def _launch_packed(fn_name: str, p, g, mu, nu, hp, block_idx, job_slot,
+                   block: int, p_packed: bool):
+    """K3 (no ``job_slot``) or K4 on the card: PACKED outputs."""
+    device = mu.device
     stream = _stream(device)
-    fn = _build.entry("agg_adam", "agg_adam_blocks",
-                     [_build.P, _build.I32, _build.P, _build.I64, _build.I32]
-                     + [_build.P] * 4 + [_build.I64, _build.I32]
-                     + [_build.P] * 3 + [_build.I32, _build.P])
+    slot = [] if job_slot is None else [_build.P]
+    fn = _build.entry("agg_adam", fn_name,
+                      [_build.P, _build.I32, _build.P, _build.I64, _build.I32]
+                      + [_build.P] * 4 + slot + [_build.I64, _build.I32]
+                      + [_build.P] * 3 + [_build.I32, _build.P])
+    n_own = int(block_idx.shape[0])
+    m = n_own * block
     out = [torch.empty(m, dtype=torch.float32, device=device)
            for _ in range(3)]
     w = 1 if g.dim() == 1 else int(g.shape[0])
-    aggregate_adam_blocks.launches += 1
+    slot_ptr = [] if job_slot is None else [job_slot.data_ptr()]
     _build.check(fn(p.data_ptr(), int(p_packed), g.data_ptr(), m, w,
                     mu.data_ptr(), nu.data_ptr(), hp.data_ptr(),
-                    block_idx.data_ptr(), n_own, block,
+                    block_idx.data_ptr(), *slot_ptr, n_own, block,
                     *(o.data_ptr() for o in out),
-                    _vec_ok(block, p, mu, nu, g), stream),
-                 "agg_adam_blocks")
+                    _vec_ok(block, p, mu, nu, g), stream), fn_name)
     return tuple(out)
 
 
+def aggregate_adam_blocks(p, g, mu, nu, hp, block_idx, *, block: int,
+                          p_packed: bool):
+    """K3, one job's block step: Adam over the owned blocks ``block_idx``
+    of the FULL mu/nu (N,), with p full (N,) or packed (M,) as
+    ``p_packed`` says (explicit: when the job owns every block M == N and
+    the two layouts differ only in order) and hp the job's
+    ``(1, HP_COLS)`` row.  Returns PACKED (new_p, new_mu, new_nu)."""
+    if hp.shape != (1, HP_COLS):
+        raise ValueError(f"hp must be (1, {HP_COLS}), got {tuple(hp.shape)}")
+    _check_packed(p, g, mu, nu, hp, block_idx, None, block, p_packed)
+    if mu.device.type == "cpu":
+        return ref.aggregate_adam_blocks_plain(
+            p, g, mu, nu, hp, block_idx, block=block, p_packed=p_packed)
+    aggregate_adam_blocks.launches += 1
+    return _launch_packed("agg_adam_blocks", p, g, mu, nu, hp, block_idx,
+                          None, block, p_packed)
+
+
 aggregate_adam_blocks.launches = 0
+
+
+def aggregate_adam_multijob(p, g, mu, nu, hp, block_idx, job_slot, *,
+                            block: int, p_packed: bool):
+    """K4, K co-resident jobs' Adam in one launch with PACKED outputs: K1's
+    grid and hp rows (``job_slot[i]`` for tile i), K3's outputs.  mu/nu
+    are the FULL (N,) buffers; p is full (N,) or packed (M,) as
+    ``p_packed`` says (explicit, as for K3); ``g`` is (M,) or (W, M).
+    Returns (new_p, new_mu, new_nu), each (M,)."""
+    _check_packed(p, g, mu, nu, hp, block_idx, job_slot, block, p_packed)
+    if mu.device.type == "cpu":
+        return ref.aggregate_adam_multijob_plain(
+            p, g, mu, nu, hp, block_idx, job_slot, block=block,
+            p_packed=p_packed)
+    aggregate_adam_multijob.launches += 1
+    return _launch_packed("agg_adam_multijob", p, g, mu, nu, hp, block_idx,
+                          job_slot, block, p_packed)
+
+
+aggregate_adam_multijob.launches = 0
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -252,6 +293,57 @@ def scatter_rows(buf: torch.Tensor, packed: torch.Tensor, block_idx,
     return buf
 
 
+def _tick_grads(gs, counts, block_idx, job_sizes):
+    """The per-job packed gradients concatenated (or one pre-concatenated
+    vector as is), after checking the block table against ``job_sizes``
+    and ``counts``."""
+    job_sizes = tuple(int(s) for s in job_sizes)
+    if sum(job_sizes) != int(block_idx.shape[0]):
+        raise ValueError(f"job_sizes {job_sizes} sum to {sum(job_sizes)}, "
+                         f"block_idx has {int(block_idx.shape[0])} blocks")
+    if len(job_sizes) != len(counts):
+        raise ValueError(f"{len(job_sizes)} job_sizes for {len(counts)} "
+                         f"counts")
+    if isinstance(gs, (list, tuple)):
+        return torch.cat(list(gs), dim=-1) if len(gs) > 1 else gs[0]
+    return gs
+
+
+def _job_slot(job_sizes) -> np.ndarray:
+    """The hp row of every owned block: job j's ``job_sizes[j]`` blocks
+    take row j."""
+    return np.repeat(np.arange(len(job_sizes), dtype=np.int32),
+                     np.asarray(job_sizes, np.int64))
+
+
+def multi_job_adam_update(p, gs, mu, nu, counts, *, block_idx, job_sizes,
+                          block: int, p_packed: bool = False, lr, b1=0.9,
+                          b2=0.999, eps=1e-8, wd=0.0):
+    """One service tick, unfused (kernel K4): K co-resident jobs' Adam
+    updates in one launch with PACKED outputs for the caller to scatter.
+
+    mu/nu are the FULL shared (N,) buffers; p is full unless ``p_packed``
+    says it is already packed in block-table order.  The flag is never
+    inferred from shapes: when the jobs own every block M == N and the two
+    layouts differ only in order.  ``block_idx`` concatenates the jobs'
+    owned-block lists (``job_sizes[j]`` blocks for job j, in the order of
+    ``counts`` and of any per-job hyperparameter sequences); ``gs`` is the
+    per-job sequence of packed gradients or one pre-concatenated vector.
+    Returns (new_p, new_mu, new_nu), each ``len(block_idx) * block`` long;
+    :func:`scatter_rows` of each equals :func:`multi_job_adam_update_fused`
+    bit for bit.
+    """
+    device = mu.device
+    g_cat = _tick_grads(gs, counts, block_idx, job_sizes)
+    job_slot = _job_slot(job_sizes)
+    hp = host_to_device(multi_job_hp(counts, lr=lr, b1=b1, b2=b2, eps=eps,
+                                     wd=wd), device)
+    return aggregate_adam_multijob(
+        p, g_cat, mu, nu, hp, host_to_device(block_idx, device, torch.int32),
+        host_to_device(job_slot, device, torch.int32), block=block,
+        p_packed=bool(p_packed))
+
+
 def multi_job_adam_update_fused(p, gs, mu, nu, counts, *, block_idx,
                                 job_sizes, block: int, lr, b1=0.9, b2=0.999,
                                 eps=1e-8, wd=0.0, job_slot=None):
@@ -267,17 +359,9 @@ def multi_job_adam_update_fused(p, gs, mu, nu, counts, *, block_idx,
     the reference does, or one pre-concatenated vector.
     """
     device = p.device
-    job_sizes = tuple(int(s) for s in job_sizes)
-    if sum(job_sizes) != int(block_idx.shape[0]) or len(job_sizes) != len(counts):
-        raise ValueError(f"job_sizes {job_sizes} do not match block_idx "
-                         f"{tuple(block_idx.shape)} / {len(counts)} counts")
-    if isinstance(gs, (list, tuple)):
-        g_cat = torch.cat(list(gs), dim=-1) if len(gs) > 1 else gs[0]
-    else:
-        g_cat = gs
+    g_cat = _tick_grads(gs, counts, block_idx, job_sizes)
     if job_slot is None:
-        job_slot = np.repeat(np.arange(len(job_sizes), dtype=np.int32),
-                             np.asarray(job_sizes, np.int64))
+        job_slot = _job_slot(job_sizes)
     hp = host_to_device(multi_job_hp(counts, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd),
                    device)
     return aggregate_adam_multijob_fused(

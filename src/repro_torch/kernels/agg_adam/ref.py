@@ -94,3 +94,15 @@ def aggregate_adam_plain(p, g, mu, nu, hp):
     mu.copy_(new_mu.reshape(mu.shape))
     nu.copy_(new_nu.reshape(nu.shape))
     return p, mu, nu
+
+
+def aggregate_adam_multijob_plain(p, g, mu, nu, hp, block_idx, job_slot, *,
+                                  block: int, p_packed: bool):
+    """K4: K1's rows (hp row ``job_slot[i]`` for tile i) with K3's PACKED
+    outputs; p full or packed, mu/nu full."""
+    rows = block_idx.long()
+    pp = p.view(-1, block) if p_packed else p.view(-1, block)[rows]
+    new_p, new_mu, new_nu = adam_rows(
+        hp[job_slot.long()], pp, grad_sum(g).view(-1, block),
+        mu.view(-1, block)[rows], nu.view(-1, block)[rows])
+    return new_p.reshape(-1), new_mu.reshape(-1), new_nu.reshape(-1)

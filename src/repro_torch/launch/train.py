@@ -1,14 +1,18 @@
 """Training driver (``repro.launch.train``): --arch <id> end-to-end
 training on the card.
 
-Synthetic LM batches -> ``make_train_step`` with the reference's
-``adam(3e-4)`` -> loss and throughput lines.  Runs on ``cuda:0`` unless
-``--device cpu``.
+Synthetic batches -> the family's train step with the reference's
+optimizer (lm: ``adam(3e-4)``; dlrm: ``adagrad(0.01)``; sasrec and dien:
+``adam(1e-3)``) -> loss and throughput lines.  Weights come from a
+``torch.Generator`` on the device seeded with 0.  Runs on ``cuda:0``
+unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --steps 20 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
+      --steps 10 --batch 65536
 
-The lm family runs; gnn and recsys archs are not ported yet (ROADMAP.md,
+The lm and recsys families run; gnn archs are not ported yet (ROADMAP.md,
 Queue 1 item 15), nor is checkpointing (``--ckpt-dir``, item 11).
 """
 
@@ -21,28 +25,64 @@ import numpy as np
 import torch
 
 from ..configs import registry
-from ..data import lm_batch
+from ..data import dien_batch, lm_batch, recsys_batch, sasrec_batch
 from ..device import resolve_device
+from ..models import recsys
 from ..models import transformer as tf
-from ..optim import adam
+from ..optim import adagrad, adam
+
+
+def _seeded(device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return gen
+
+
+def _recsys(cfg, rng, batch: int):
+    """(optimizer, loss, init, host batch) of one recsys config."""
+    if isinstance(cfg, recsys.DLRMConfig):
+        return (adagrad(0.01), lambda p, b: recsys.dlrm_loss(cfg, p, b),
+                recsys.dlrm_init,
+                lambda: recsys_batch(rng, batch, cfg.n_dense, cfg.vocab_sizes))
+    if isinstance(cfg, recsys.SASRecConfig):
+        return (adam(1e-3), lambda p, b: recsys.sasrec_loss(cfg, p, b),
+                recsys.sasrec_init,
+                lambda: sasrec_batch(rng, batch, cfg.seq_len, cfg.n_items))
+    return (adam(1e-3), lambda p, b: recsys.dien_loss(cfg, p, b),
+            recsys.dien_init,
+            lambda: dien_batch(rng, batch, cfg.seq_len, cfg.n_items,
+                               cfg.n_cats))
 
 
 def build(arch: str, smoke: bool, batch: int, seq: int, device=None):
-    """Returns (init_state, train_step, batch_fn, tokens_per_batch)."""
-    if registry.family(arch) != "lm":
+    """Returns (init_state, train_step, batch_fn, items_per_batch): tokens
+    for an LM, examples for a recsys model."""
+    fam = registry.family(arch)
+    if fam not in ("lm", "recsys"):
         raise NotImplementedError(
-            f"arch {arch!r} ({registry.family(arch)}) is not ported yet "
+            f"arch {arch!r} ({fam}) is not ported yet "
             f"(ROADMAP.md, Queue 1 item 15)")
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     cfg = registry.get_smoke_config(arch) if smoke else registry.get_config(arch)
+    if fam == "recsys":
+        opt, loss, init, host_batch = _recsys(cfg, rng, batch)
+
+        def init_state():
+            params = init(cfg, _seeded(device), device)
+            return {"params": params, "opt": opt.init(params)}
+
+        def batch_fn():
+            return {k: torch.from_numpy(v).to(device)
+                    for k, v in host_batch().items()}
+
+        return init_state, recsys.make_train_step(loss, opt), batch_fn, batch
+
     opt = adam(3e-4)
     step = tf.make_train_step(cfg, opt)
 
     def init_state():
-        gen = torch.Generator(device=device)
-        gen.manual_seed(0)
-        params = tf.init_params(cfg, gen, device)
+        params = tf.init_params(cfg, _seeded(device), device)
         return {"params": params, "opt": opt.init(params)}
 
     def batch_fn():

@@ -1,3 +1,4 @@
-"""Models of the port (``repro.models``): so far the dense decoder-only
-LM (``transformer``) with its layers and attention.  MoE, MLA, recsys and
-GNN models are not ported yet (ROADMAP.md, Queue 1 item 15)."""
+"""Models of the port (``repro.models``): the dense decoder-only LM
+(``transformer``) with its layers and attention, and the recsys family
+(``recsys``: DLRM, SASRec, DIEN and the system EmbeddingBag).  MoE, MLA
+and GNN models are not ported yet (ROADMAP.md, Queue 1 item 15)."""

@@ -1,16 +1,39 @@
 """Shared layers (``repro.models.layers``), plain PyTorch.
 
 Same arithmetic as the reference, op for op: norms in float32 and cast
-back, RoPE on split halves, and the chunked cross-entropy that never
-holds more than one sequence chunk's logits, with padded vocab columns
-and ``-1`` labels masked.
+back, RoPE on split halves, the chunked cross-entropy that never holds
+more than one sequence chunk's logits, with padded vocab columns and
+``-1`` labels masked, and the recsys towers' MLP.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+
+def normal_init(generator: torch.Generator, shape, stddev: float = 0.02,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """``stddev`` x N(0, 1) draws from ``generator`` (on ``device``), cast
+    to ``dtype``.  The draws differ from ``jax.random``'s: carry the
+    reference's weights across to compare the two."""
+    x = torch.randn(shape, generator=generator, device=device)
+    return x.mul_(stddev).to(dtype)
+
+
+def mlp(x, weights: Sequence, biases: Sequence, act=torch.relu,
+        final_act=None):
+    """Plain MLP used by the recsys towers: ``act`` between layers,
+    ``final_act`` (if any) after the last."""
+    h = x
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        h = h @ w + b
+        if i < len(weights) - 1:
+            h = act(h)
+        elif final_act is not None:
+            h = final_act(h)
+    return h
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

@@ -191,3 +191,114 @@ def test_scatter_rows_matches_reference():
     got = tops.scatter_rows(t, torch.from_numpy(packed), rows, block)
     assert got is t
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------- K4: packed multi-job
+def _k4_case(hp_case, workers, p_packed, seed=0):
+    kw = dict(HP_CASES[hp_case])
+    counts = kw.pop("counts")
+    k = len(counts)
+    block = 128
+    p, mu, nu, g, block_idx, sizes = _case(seed + hp_case * 10 + workers,
+                                           block, [3, 1, 4][:k], 12, workers)
+    own = (block_idx.astype(np.int64)[:, None] * block
+           + np.arange(block)).reshape(-1)
+    p_in = p[own] if p_packed else p
+    return p, p_in, mu, nu, g, block_idx, sizes, counts, kw, block
+
+
+@pytest.mark.parametrize("p_packed", [False, True])
+@pytest.mark.parametrize("workers", [0, 2])
+@pytest.mark.parametrize("hp_case", [0, 2])
+def test_k4_plain_matches_reference_kernel_and_update(hp_case, workers,
+                                                      p_packed):
+    """K4's plain version against the reference's Pallas K4 in interpret
+    mode (FMA-contracted: rtol 2e-5, atol 2e-6) and against its eager
+    ``multi_job_adam_update`` (1 ulp), W = 1 and 2, p full and packed."""
+    (_, p_in, mu, nu, g, block_idx, sizes, counts, kw,
+     block) = _k4_case(hp_case, workers, p_packed)
+    k = len(counts)
+    job_slot = np.repeat(np.arange(k, dtype=np.int32), sizes)
+    jcounts = [jnp.int32(c) for c in counts]
+    out_k = jkernel.aggregate_adam_multijob(
+        jnp.asarray(p_in), jnp.asarray(g), jnp.asarray(mu), jnp.asarray(nu),
+        jops.multi_job_hp(jcounts, **kw), jnp.asarray(block_idx),
+        jnp.asarray(job_slot), block=block, p_packed=p_packed,
+        interpret=True)
+    out_e = jops.multi_job_adam_update(
+        jnp.asarray(p_in), jnp.asarray(g), jnp.asarray(mu), jnp.asarray(nu),
+        jcounts, block_idx=block_idx, job_sizes=sizes, block=block,
+        p_packed=p_packed, interpret=True, **kw)
+    tmu, tnu = torch.from_numpy(mu.copy()), torch.from_numpy(nu.copy())
+    out_t = tops.multi_job_adam_update(
+        torch.from_numpy(p_in.copy()), torch.from_numpy(g), tmu, tnu, counts,
+        block_idx=block_idx, job_sizes=sizes, block=block, p_packed=p_packed,
+        **kw)
+    for name, t, a, e in zip(("p", "mu", "nu"), out_t, out_k, out_e):
+        assert t.shape == (block_idx.size * block,), name
+        assert ulp_diff(t.numpy(), np.asarray(e)) <= ULP_BUDGET, name
+        np.testing.assert_allclose(t.numpy(), np.asarray(a), rtol=2e-5,
+                                   atol=2e-6, err_msg=name)
+    # mu/nu are read, never written.
+    np.testing.assert_array_equal(tmu.numpy(), mu)
+    np.testing.assert_array_equal(tnu.numpy(), nu)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_k4_then_scatter_equals_k1_bit_for_bit(workers):
+    """The contract of ``multi_job_adam_update``: its packed outputs,
+    scattered onto their rows, equal the fused tick (K1) bit for bit, for
+    a list of per-job gradients and for one concatenated vector."""
+    p, _, mu, nu, g, block_idx, sizes, counts, kw, block = _k4_case(
+        1, workers, False, seed=40)
+    offs = np.cumsum((0,) + sizes) * block
+    gs = [torch.from_numpy(g[..., a:b].copy())
+          for a, b in zip(offs[:-1], offs[1:])]
+    fused = [torch.from_numpy(x.copy()) for x in (p, mu, nu)]
+    tops.multi_job_adam_update_fused(
+        *fused[:1], gs, *fused[1:], counts, block_idx=block_idx,
+        job_sizes=sizes, block=block, **kw)
+    for grads in (gs, torch.from_numpy(g)):
+        packed = tops.multi_job_adam_update(
+            torch.from_numpy(p), grads, torch.from_numpy(mu),
+            torch.from_numpy(nu), counts, block_idx=block_idx,
+            job_sizes=sizes, block=block, **kw)
+        for name, full, new, want in zip(("p", "mu", "nu"), (p, mu, nu),
+                                         packed, fused):
+            got = tops.scatter_rows(torch.from_numpy(full.copy()), new,
+                                    block_idx, block)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), name
+
+
+def test_k4_wrappers_check_inputs_and_never_infer_the_layout():
+    block = 128
+    # Two jobs own every block: M == N, so only the flag tells the layouts
+    # apart, and the two give different updates.
+    p, mu, nu, g, block_idx, sizes = _case(3, block, [2, 2], 4, 0)
+    args = [torch.from_numpy(x.copy()) for x in (p, g, mu, nu)]
+    kw = dict(block_idx=block_idx, job_sizes=sizes, block=block, lr=1e-2)
+    full = tops.multi_job_adam_update(args[0], args[1], args[2], args[3],
+                                      [1, 2], **kw)
+    packed = tops.multi_job_adam_update(args[0], args[1], args[2], args[3],
+                                        [1, 2], p_packed=True, **kw)
+    assert not torch.equal(full[0], packed[0])
+    with pytest.raises(ValueError, match="sum to"):
+        tops.multi_job_adam_update(*args, [1, 2], **{**kw,
+                                                     "job_sizes": (2, 1)})
+    with pytest.raises(ValueError, match="counts"):
+        tops.multi_job_adam_update(*args, [1], **kw)
+    hp = tops.multi_job_hp([1, 2], lr=1e-3)
+    bi = torch.from_numpy(block_idx)
+    slot = torch.zeros(block_idx.size, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tops.aggregate_adam_multijob(args[0].double(), args[1], args[2],
+                                     args[3], hp, bi, slot, block=block,
+                                     p_packed=False)
+    with pytest.raises(ValueError, match="job_slot"):
+        tops.aggregate_adam_multijob(*args, hp, bi, slot.long(), block=block,
+                                     p_packed=False)
+    with pytest.raises(ValueError, match="packed"):
+        tops.aggregate_adam_multijob(args[0][:-1], *args[1:], hp, bi, slot,
+                                     block=block, p_packed=True)
+    assert tops.aggregate_adam_multijob.launches == 0  # CPU: plain version

@@ -261,9 +261,13 @@ def test_registry_and_unported_paths_raise():
     assert registry.list_archs() == sorted(registry.ARCHS)
     assert registry.get_config("qwen1.5-0.5b") == tqwen.config()
     for arch in registry.list_archs():
-        if arch != "qwen1.5-0.5b":
+        if arch in registry.PORTED:
+            registry.get_config(arch)
+        else:
             with pytest.raises(NotImplementedError, match="item 15"):
                 registry.get_config(arch)
+    assert registry.PORTED == {"qwen1.5-0.5b", "dlrm-rm2", "sasrec", "dien",
+                               "dlrm-mlperf"}
     cfg = dataclasses.replace(tqwen.smoke_config(), moe=object())
     with pytest.raises(NotImplementedError, match="item 15"):
         ttf.init_params(cfg, device="meta")
