@@ -66,7 +66,8 @@ and the recsys family at its published widths (seeded random weights):
      one user against retrieval_cand's 1,000,000 candidates;
   k. SASRec and DIEN at the train_batch cell's 65,536 through
      ``launch/train.build``: 3 steps of adam(1e-3) each (plain PyTorch;
-     no TPU kernel in either package).
+     no TPU kernel in either package), after two identical backward
+     passes of the first batch held against each other bit for bit.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -80,7 +81,10 @@ flash attention kernel is also held against its plain version at the
 prefill's layer shape (bf16: every element within rtol 1e-2 plus a small
 atol, and every query row of every head within 1e-2 relative L2 error;
 see K7_BF16_RTOL) and on small float32 (rtol/atol 2e-5) and bf16 cases
-(non-causal, ragged S, GQA, head dim 128, an unaligned view).  K6 is
+(non-causal, ragged S, causal S_q < S_k, GQA, head dim 128 ragged,
+strided views of one fused qkv tensor, an unaligned view); a bf16 call
+at head dim 32 must raise; the built library's SASS must hold wgmma
+(HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA).  K6 is
 held against its plain version bit for bit at phase i's lookup and at
 multi-hot (L = 20), D = 18 and 50 (its scalar path), bfloat16 and
 unaligned-view shapes, each timed beside ``F.embedding_bag``.  Launch
@@ -105,7 +109,9 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,18 +132,20 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 128
 PREFILL_SEQ = 32768  # the prefill_32k cell (repro/arch.py), batch cut to 1
 DLRM_STEPS = 10
 # K7 against its plain version.  float32 (the SIMT kernel): rtol = atol =
-# 2e-5, the reference kernel tests' own.  bfloat16 (the tensor-core
-# kernel): each output element within rtol 1e-2 (above one bf16 ulp,
-# 2^-7 relative at most) plus K7_BF16_ATOL, and the relative L2 error of
-# every (query row, head) over D at most K7_ROW_REL.  At the prefill
-# shape (S = 32 768, N(0, 1) inputs) a late row's output is about 0.01 in
-# size, so an atol of 2e-2 hid whole faults there; a key tile of 64
-# dropped from the last rows moves them by about sqrt(64 / 32768) = 4 %.
-# Set from scripts/torch_k7_fault_check.py at that shape (NVIDIA H100
-# 80GB HBM3, 700 W): the sound kernel needs atol 1.52e-3 and has a
-# largest row error of 5.30e-3; planted faults in the last query tile
-# (a dropped or a stale key tile, a normaliser 2 % high) show row errors
-# of 0.147, 0.154 and 0.0213.
+# 2e-5, the reference kernel tests' own.  bfloat16 (the Hopper kernel,
+# flash_fwd_wgmma): each output element within rtol 1e-2 (above one bf16
+# ulp, 2^-7 relative at most) plus K7_BF16_ATOL, and the relative L2
+# error of every (query row, head) over D at most K7_ROW_REL.  At the
+# prefill shape (S = 32 768, N(0, 1) inputs) a late row's output is about
+# 0.01 in size, so an atol of 2e-2 hid whole faults there; a key tile of
+# 64 dropped from the last rows moves them by about sqrt(64 / 32768) =
+# 4 %.  Set from scripts/torch_k7_fault_check.py at that shape (NVIDIA
+# H100 80GB HBM3, 700 W) on the earlier mma.sync kernel: the sound kernel
+# needed atol 1.52e-3 and had a largest row error of 5.30e-3; planted
+# faults in the last query tile (a dropped or a stale key tile of 64, a
+# normaliser 2 % high) showed row errors of 0.147, 0.154 and 0.0213.  The
+# Hopper kernel reads the same sound values, and its faults (tiles of
+# 128) 0.206, 0.250 and 0.0216.
 K7_F32_TOL = 2e-5
 K7_BF16_RTOL, K7_BF16_ATOL, K7_ROW_REL = 1e-2, 2.5e-3, 1e-2
 # Two bf16 forwards of the same model that round in different places
@@ -1222,29 +1230,39 @@ def k7_entry(device, shape):
 
 def k7_small_checks(device):
     """K7 against its plain version on small cases, in float32 (the SIMT
-    kernel, rtol/atol 2e-5) and in bfloat16 (the tensor-core kernel, by
-    ``k7_compare``'s limits; one case on an unaligned view, which the
-    wrapper copies first): non-causal, ragged S (padded keys), GQA, head
-    dim 128."""
+    kernel, rtol/atol 2e-5) and in bfloat16 (the Hopper kernel, by
+    ``k7_compare``'s limits): non-causal, ragged S (padded keys), causal
+    with S_q < S_k (the bottom-right offset), GQA, head dim 128 (ragged,
+    causal and not), q, k, v as strided views of one fused (B, S, 3, H, D)
+    tensor, and one bf16 case on an unaligned view, which the wrapper
+    copies first.  A bf16 call at head dim 32 must raise ValueError."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
     gen = torch.Generator(device=device)
     gen.manual_seed(8)
-    cases = {  # name: (B, S, HQ, HK, D, causal)
-        "non-causal S=256": (2, 256, 4, 4, 64, False),
-        "ragged S=200 causal": (1, 200, 4, 4, 64, True),
-        "ragged S=1000 non-causal": (1, 1000, 4, 4, 64, False),
-        "GQA HQ=8 HK=2 S=384": (1, 384, 8, 2, 64, True),
-        "D=128 S=300": (1, 300, 4, 4, 128, True),
+    cases = {  # name: (B, S_q, S_k, HQ, HK, D, causal)
+        "non-causal S=256": (2, 256, 256, 4, 4, 64, False),
+        "ragged S=200 causal": (1, 200, 200, 4, 4, 64, True),
+        "ragged S=1000 non-causal": (1, 1000, 1000, 4, 4, 64, False),
+        "causal S_q=300 S_k=1000": (1, 300, 1000, 4, 4, 64, True),
+        "GQA HQ=8 HK=2 S=384": (1, 384, 384, 8, 2, 64, True),
+        "D=128 S=300": (1, 300, 300, 4, 4, 128, True),
+        "D=128 ragged S=1000 non-causal": (1, 1000, 1000, 2, 2, 128, False),
+        "fused (B,S,3,H,D) views S=520": (2, 520, 520, 4, 4, 64, True),
     }
     worst = {"float32": 0.0, "atol_needed": -1.0, "max_row_rel": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (b, s, hq, hk, d, causal) in cases.items():
-            q = torch.randn(b, s, hq, d, generator=gen, device=device)
-            k, v = (torch.randn(b, s, hk, d, generator=gen, device=device)
-                    for _ in range(2))
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        for name, (b, sq, sk, hq, hk, d, causal) in cases.items():
+            if name.startswith("fused"):
+                x = torch.randn(b, sk, 3, hq, d, generator=gen,
+                                device=device).to(dtype)
+                q, k, v = x[:, :sq, 0], x[:, :, 1], x[:, :, 2]
+            else:
+                q = torch.randn(b, sq, hq, d, generator=gen, device=device)
+                k, v = (torch.randn(b, sk, hk, d, generator=gen,
+                                    device=device) for _ in range(2))
+                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
             if dtype == torch.bfloat16 and name.startswith("ragged S=200"):
                 # an unaligned view (row stride 65 elements)
                 q = torch.nn.functional.pad(q, (0, 1))[..., :d]
@@ -1263,12 +1281,37 @@ def k7_small_checks(device):
                 worst[key] = max(worst[key], cmp[key])
             if not cmp["ok"]:
                 raise AssertionError(f"K7 {name} bfloat16: {fmt_k7(cmp)}")
+    q32 = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=device)
+    try:
+        fa_ops.flash_attention(q32, q32, q32)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("K7: a bf16 call at head dim 32 did not raise")
     print(f"K7 small checks ({', '.join(cases)}): float32 max abs "
           f"{worst['float32']:.3e} (rtol/atol {K7_F32_TOL:g}); bfloat16 "
           f"atol_needed {worst['atol_needed']:.3e} (limit {K7_BF16_ATOL:g} "
           f"at rtol {K7_BF16_RTOL:g}) max_row_rel {worst['max_row_rel']:.3e} "
-          f"(limit {K7_ROW_REL:g}; the S=200 case on an unaligned view)",
-          flush=True)
+          f"(limit {K7_ROW_REL:g}; the S=200 case on an unaligned view); "
+          f"bf16 at D=32 refused: {refused}", flush=True)
+
+
+def k7_sass_counts(lib_path) -> dict:
+    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions in the built flash attention library's SASS; raises
+    unless the bf16 kernel has wgmma and TMA and no mma.sync is left."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    # "/*0450*/  @!P0 HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], ... ;"
+    ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)",
+                     sass)
+    counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    print(f"K7 SASS ({Path(lib_path).name}): {counts}", flush=True)
+    if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0 or counts["HMMA"]:
+        raise AssertionError(f"K7's library: expected wgmma and TMA and no "
+                             f"mma.sync, got {counts}")
+    return counts
 
 
 # ------------------------------------------------------ the recsys phases
@@ -1432,8 +1475,13 @@ def dlrm_score_phase(cfg, params, device, wrappers, full):
 
 def recsys_train_phase(arch, batch, device, full, steps=3):
     """Phase k: ``steps`` steps of ``launch/train.build(arch)`` (adam(1e-3);
-    plain PyTorch, no TPU kernel in either package); losses finite."""
+    plain PyTorch, no TPU kernel in either package); losses finite.
+    Before them, the loss and every gradient of the first batch twice,
+    bit for bit (the embeddings' gathers are ``F.embedding``, whose CUDA
+    backward summed repeated ids in a run-dependent order for DLRM-RM2)."""
+    from repro_torch.configs import registry
     from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves_by_key, value_and_grad
 
     t_start = time.perf_counter()
     init_state, step, batch_fn, _ = train.build(arch, not full, batch, 0,
@@ -1441,6 +1489,20 @@ def recsys_train_phase(arch, batch, device, full, steps=3):
     torch.cuda.reset_peak_memory_stats()
     state = init_state()
     batches = [batch_fn() for _ in range(steps)]
+    cfg = registry.get_config(arch) if full else registry.get_smoke_config(arch)
+    grad = value_and_grad(train._recsys(cfg, None, 0)[1])
+    loss_1, g_1 = grad(state["params"], batches[0])
+    loss_2, g_2 = grad(state["params"], batches[0])
+    la, lb = tree_leaves_by_key(g_1), tree_leaves_by_key(g_2)
+    differ = {k: (int((la[k] != lb[k]).sum()),
+                  float((la[k] - lb[k]).abs().max()))
+              for k in la if not bits_equal(la[k], lb[k])}
+    if differ or not bits_equal(loss_1, loss_2):
+        raise AssertionError(f"phase k {arch}: two identical backward passes "
+                             f"differ: loss {float(loss_1)} vs "
+                             f"{float(loss_2)}; leaves (lanes, max diff) "
+                             f"{differ}")
+    del g_1, g_2, la, lb
     state, times, losses = timed_steps(step, state, batches, device)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"phase k {arch}: losses not finite: {losses}")
@@ -1449,8 +1511,9 @@ def recsys_train_phase(arch, batch, device, full, steps=3):
           f"step_ms_median={med:.2f} step_ms_first={times[0]:.2f} "
           f"items_per_s={batch / med * 1e3:.0f} losses="
           f"{[round(l, 5) for l in losses]} max_memory_allocated_gb="
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} seconds="
-          f"{time.perf_counter() - t_start:.1f}", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} two backward "
+          f"passes bit for bit; seconds={time.perf_counter() - t_start:.1f}",
+          flush=True)
 
 
 def k6_bound(b, n_len, d, elem):
@@ -1556,6 +1619,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    k7_sass_counts(_build.library_path("flash_attn"))
 
     wrappers = {
         "agg_adam_multijob_fused": agg_ops.aggregate_adam_multijob_fused,

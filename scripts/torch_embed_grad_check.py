@@ -28,6 +28,43 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 
+def model_gathers(device, gen):
+    """SASRec's and DIEN's gathers: for each, whether two identical
+    backward passes agree, through ``F.embedding``'s backward and through
+    ``recsys._dense_grad``."""
+    from repro_torch.configs import dien, sasrec
+    from repro_torch.data import dien_batch, sasrec_batch
+    from repro_torch.models import recsys
+
+    batch = 65536
+    rng = np.random.default_rng(0)
+    s_cfg, d_cfg = sasrec.config(), dien.config()
+    sb = sasrec_batch(rng, batch, s_cfg.seq_len, s_cfg.n_items)
+    rng = np.random.default_rng(0)
+    db = dien_batch(rng, batch, d_cfg.seq_len, d_cfg.n_items, d_cfg.n_cats)
+    cases = [(f"sasrec item_emb[{k}]", s_cfg.n_items, s_cfg.embed_dim, sb[k])
+             for k in ("seq", "pos", "neg")]
+    cases += [(f"dien item_emb[{k}]", d_cfg.n_items, d_cfg.embed_dim, db[k])
+              for k in ("hist_items", "target_item")]
+    cases += [(f"dien cat_emb[{k}]", d_cfg.n_cats, d_cfg.embed_dim, db[k])
+              for k in ("hist_cats", "target_cat")]
+    lines = []
+    for name, rows, dim, ids in cases:
+        ids = torch.from_numpy(ids).to(device).long()
+        cot = torch.randn(*ids.shape, dim, generator=gen, device=device)
+        out = {}
+        for way, fn in (("F.embedding", lambda g, i, v: torch.ops.aten
+                         .embedding_dense_backward(g, i, v, -1, False)),
+                        ("_dense_grad", recsys._dense_grad)):
+            a, b = (fn(cot, ids, rows) for _ in range(2))
+            out[way] = ("bit for bit" if torch.equal(a, b) else
+                        f"differ in {int((a != b).sum())} lanes, max "
+                        f"{float((a - b).abs().max()):.3e}")
+        lines.append(f"{name} (V {rows}, {ids.numel()} ids): two passes "
+                     + "; ".join(f"{w} {r}" for w, r in out.items()))
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_embed_grad_check: needs a CUDA card", file=sys.stderr)
@@ -80,6 +117,8 @@ def main() -> int:
                                          + "; ".join(lines)), flush=True)
     print(f"largest difference between the two ways, over the table's "
           f"largest gradient: {worst_between:.3e}", flush=True)
+    for line in model_gathers(device, gen):
+        print(line, flush=True)
     print(card, flush=True)
     return 0
 

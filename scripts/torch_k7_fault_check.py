@@ -5,9 +5,12 @@ planted faults, runs each at one prefill layer's shape ((B, S, H, D) =
 (1, 32768, 16, 64), bf16, causal, the inputs ``chip_smoke.py`` uses) and
 prints how far each lies from the plain version, beside the limits of
 ``chip_smoke.k7_compare``.  Exits 1 unless the sound kernel passes that
-check and every planted fault fails it.  The faults touch the last query
-tile only (its 64 rows see the most keys, so each key there weighs
-least): the hardest place for a check to see them.  The faulty sources
+check and every planted fault fails it.  The faults, in the bf16 kernel
+``flash_fwd_wgmma``, touch the last query tile only (its 192 rows see
+the most keys, so each key there weighs least), the hardest place for a
+check to see them: the key tile of 128 before the diagonal dropped; a
+stale K/V stage (the producer skips that tile's TMA copies, so the
+consumers read the ring stage's older tile); the normaliser 2 % high.  The faulty sources
 are written and built under ``build/k7_faults/`` (git-ignored).
 
   python3 scripts/torch_k7_fault_check.py      (on a CUDA card, with nvcc)
@@ -31,19 +34,39 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import ops, ref  # noqa: E402
 
 SHAPE = (1, cs.PREFILL_SEQ, 16, 64)
-LOOP = "  for (int k0 = 0; k0 < kv_end; k0 += kMmaBK) {\n    __syncthreads();\n"
-LOAD = "    for (int idx = threadIdx.x; idx < kMmaBK * D / 8; idx += kThreads) {"
-NORM = "  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);\n"
-LAST = "blockIdx.x == 0"  # the last query tile (heaviest first)
-# name: (text in flash_attn.cu, its replacement)
+LAST = "blockIdx.y == 0"  # the last query tile (heaviest first)
+MASK = ("        mask_tile<BK>(s_acc, t * BK, row0, Sk, offset, causal, t4);"
+        "\n")
+NORM = "    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);\n"
+
+
+def _skip_load(x: str) -> tuple:
+    """The producer's TMA copy of one K (x = "k") or V ("v") tile, and the
+    same with the copy skipped for the last query tile's second-to-last
+    key tile: its full barrier completes with no bytes, so the consumers
+    read whatever the ring's stage held."""
+    load = (f"        mbar_expect_tx({x}_full(s), KV_BYTES);\n"
+            f"        for (int c = 0; c < CB; ++c)\n"
+            f"          tma_load_4d({x}_s + s * KV_BYTES + c * BK * 128, "
+            f"&tm_{x}, {x}_full(s),\n"
+            f"                      64 * c, hk, t * BK, b);\n")
+    return load, (f"        if ({LAST} && t == n_tiles - 2) {{\n"
+                  f"          mbar_arrive({x}_full(s));\n"
+                  f"        }} else {{\n{load}        }}\n")
+
+
+# name: [(text in flash_attn.cu, its replacement), ...]
 FAULTS = {
-    "drop the key tile before the diagonal": (
-        LOOP, LOOP + f"    if ({LAST} && k0 == kv_end - 2 * kMmaBK) continue;\n"),
-    "stale K/V tile (keep the previous one)": (
-        LOAD, f"    if (!({LAST} && k0 == kv_end - 2 * kMmaBK))\n" + LOAD),
-    "normaliser 2 % high": (
+    "drop the key tile before the diagonal": [(
+        MASK, MASK + f"      if ({LAST} && t == n_unmasked - 1) {{\n"
+        "#pragma unroll\n"
+        "        for (int e = 0; e < BK / 2; ++e) s_acc[e] = -INFINITY;\n"
+        "      }\n")],
+    "stale K/V stage (the producer skips one tile's TMA)": [
+        _skip_load("k"), _skip_load("v")],
+    "normaliser 2 % high": [(
         NORM, NORM.replace("const float d0", "float d0")
-        + f"  if ({LAST}) {{ d0 *= 1.02f; d1 *= 1.02f; }}\n"),
+        + f"    if ({LAST}) {{ d0 *= 1.02f; d1 *= 1.02f; }}\n")],
 }
 
 
@@ -55,12 +78,15 @@ def build_faults():
     out = _build.BUILD_DIR.parent / "k7_faults"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (old, new)) in enumerate(FAULTS.items()):
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {name!r}: its target text is not in "
-                               f"flash_attn.cu exactly once")
+    for i, (name, edits) in enumerate(FAULTS.items()):
+        faulty = src
+        for old, new in edits:
+            if faulty.count(old) != 1:
+                raise RuntimeError(f"fault {name!r}: its target text is not "
+                                   f"in flash_attn.cu exactly once")
+            faulty = faulty.replace(old, new)
         cu, so = out / f"fault{i}.cu", out / f"libfault{i}.so"
-        cu.write_text(src.replace(old, new))
+        cu.write_text(faulty)
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

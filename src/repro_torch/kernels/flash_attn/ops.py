@@ -1,16 +1,22 @@
 """Flash attention forward (K7), dispatched by tensor device.
 
 ``flash_attention(q, k, v)`` takes the model layout (B, S, H, D).  A CUDA
-tensor goes through the hand-written kernel in ``csrc/flash_attn.cu``
-(built on first use), which reads the inputs through their strides (no
+tensor goes through the hand-written kernels in ``csrc/flash_attn.cu``
+(built on first use), which read the inputs through their strides (no
 transpose, no padding copy: ragged S is masked inside the kernel) and
-indexes the kv head of each query head itself (GQA): bfloat16 on the
-tensor cores, float32 in SIMT arithmetic.  The tensor-core kernel needs
-16-byte aligned rows; the prefill's q, k, v have them, and a bfloat16
-view without them is copied to a fresh contiguous tensor first.  A CPU
-tensor goes through the plain version in :mod:`.ref`.  The wrapper counts its kernel
-launches in ``flash_attention.launches``.  Forward only: neither package
-has a backward kernel, so an input that requires grad is refused.
+index the kv head of each query head themselves (GQA).  bfloat16 runs on
+Hopper's tensor cores (``flash_fwd_wgmma``: TMA, wgmma, warp-specialised
+warpgroups) at head widths 64 and 128, and needs 16-byte aligned bases and
+strides (TMA's condition); the prefill's q, k, v have them, and a view
+without them is copied to a fresh contiguous tensor first.  float32 runs
+in SIMT arithmetic at 16, 32, 64 and 128.  Any other width raises.  A CPU
+tensor goes through the plain version in :mod:`.ref`.  The wrapper counts
+its kernel launches in ``flash_attention.launches``.  Forward only:
+neither package has a backward kernel, so an input that requires grad is
+refused.
+
+:func:`tile_schedule` is the bfloat16 kernel's walk over key tiles, in the
+kernel's own formulas, for the tests.
 """
 
 from __future__ import annotations
@@ -22,8 +28,12 @@ import torch
 from .. import _build
 from . import ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
-_FLOATS = (torch.float32, torch.bfloat16)
+# The compiled head widths of each kernel.
+HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (16, 32, 64, 128)}
+# The bfloat16 kernel's tiles (csrc/flash_attn.cu, Tiles<D>): query rows a
+# block (64 a consumer warpgroup) and keys a K/V tile.
+BF16_TILES = {64: (192, 128), 128: (128, 128)}
+_FLOATS = tuple(HEAD_DIMS)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,8 +60,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"sees at least one key), got {sq} > {k.shape[1]}")
 
 
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What only the CUDA kernels refuse: a head width they were not
+    compiled for, a strided head dim, no keys."""
+    d = q.shape[-1]
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{q.dtype} head dim {d} not compiled (have "
+                         f"{HEAD_DIMS[q.dtype]})")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a contiguous last (head) dim")
+    if k.shape[1] == 0:
+        raise ValueError("no keys (S_k = 0)")
+
+
 def _rows_aligned16(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0
+                                          for s in t.stride()[:3])
+
+
+def tile_schedule(sq: int, sk: int, bq: int, bk: int, causal: bool):
+    """For each query tile of ``bq`` rows, (n_tiles, n_unmasked): the
+    kernel visits key tiles [0, n_tiles) of ``bk`` keys, and computes no
+    mask for tiles [0, n_unmasked), those visible whole to every row of
+    the query tile; the rest cross the diagonal or S_k."""
+    offset = sk - sq
+    out = []
+    for q0 in range(0, sq, bq):
+        kv_end = min(sk, q0 + bq + offset) if causal else sk
+        full = min(sk, q0 + offset + 1) if causal else sk
+        out.append((-(-kv_end // bk), full // bk))
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,15 +106,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not compiled (have {HEAD_DIMS})")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q, k, v need a contiguous last (head) dim")
+    _check_kernel(q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if _rows_aligned16(t)
                    else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
     fn = _build.entry("flash_attn", "flash_attn_fwd",
                       [_build.P] * 4 + [_build.I32] * 7 + [_build.I64] * 12
                       + [_build.F32, _build.I32, _build.P])
