@@ -56,14 +56,16 @@ and the recsys family at its published widths (seeded random weights):
 
   i. DLRM-RM2 (26 tables, 54,072,832 padded rows x 64 float32, 13.84 GB)
      through ``launch/train.build`` at the train_batch cell's 65,536:
-     10 steps of ``adagrad(0.01)``, 26 launches of the embedding-bag
-     kernel (K6) a step, one per field; the first step's loss, gradients
+     10 steps of ``adagrad(0.01)``, one launch of the table-batched
+     embedding-bag kernel (K6) a step over all 26 fields; the first
+     step's loss, gradients
      and updated leaves held against the same step through K6's plain
      version, and two identical backward passes against each other, bit
      for bit;
   j. DLRM-RM2 scoring under ``torch.inference_mode()``: ``dlrm_forward``
      at serve_p99 (512) and serve_bulk (262,144), ``dlrm_retrieval`` of
-     one user against retrieval_cand's 1,000,000 candidates;
+     one user against retrieval_cand's 1,000,000 candidates; one K6
+     launch a forward;
   k. SASRec and DIEN at the train_batch cell's 65,536 through
      ``launch/train.build``: 3 steps of adam(1e-3) each (plain PyTorch;
      no TPU kernel in either package), after two identical backward
@@ -85,11 +87,15 @@ see K7_BF16_RTOL) and on small float32 (rtol/atol 2e-5) and bf16 cases
 strided views of one fused qkv tensor, an unaligned view); a bf16 call
 at head dim 32 must raise; the built library's SASS must hold wgmma
 (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA).  K6 is
-held against its plain version bit for bit at phase i's lookup and at
-multi-hot (L = 20), D = 18 and 50 (its scalar path), bfloat16 and
-unaligned-view shapes, each timed beside ``F.embedding_bag``.  Launch
-counters are set to 0 before each phase and read after it.  Any failed
-check raises.
+held against its plain version bit for bit at phase i's whole lookup
+(26 tables, the batch's ids; also against the 26 single-table calls),
+on small table-batched cases (strided ids, bfloat16, 8-byte pieces, an
+unaligned view, 130 tables, L = 0, an ``out`` view), and as a single
+table at phase i's field, multi-hot (L = 20), D = 18 and 50 (8-byte
+pieces), bfloat16 and unaligned-view (one element a lane) shapes; each
+timed back to back and on the device with a cold L2, beside
+``F.embedding_bag``.  Launch counters are set to 0 before each phase and
+read after it.  Any failed check raises.
 
 Output: per-phase lines, one JSON line of kernels (time, bound, plain
 and library times, launches on the main path), the card's name and power
@@ -208,6 +214,53 @@ def time_ms(fn, device, reps=10, warmup=3, inner=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+
+
+def device_ms(fns, device, calls=8, cold=True, tries=4):
+    """Device time of one call: ``calls`` calls that take ``fns`` in turn
+    (one per id set), traced with ``torch.profiler``, each after a uint8
+    fill (256 MB with ``cold``, evicting the L2; else 16 bytes) that marks
+    where its kernels start; the durations of each call's kernels summed,
+    the median over the calls (a call whose kernels the trace lost does
+    not count).  A trace that holds fewer than half the calls (on the
+    card the profiler now and then records no kernel at all) is taken
+    again, up to ``tries`` times.  Returns (ms, {kernel name: ms}) of the
+    median call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(FLUSH_BYTES if cold else 16, dtype=torch.uint8,
+                          device=device)
+    fns[0]()
+    for attempt in range(tries):
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                scratch.fill_(i & 0x7F)
+                fns[i % len(fns)]()
+            sync(device)
+        kernels = sorted(
+            (e.time_range.start, e.name, e.time_range.elapsed_us())
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        per_call = []
+        for _, name, us in kernels:
+            if FLUSH_KERNEL in name:
+                per_call.append({})
+            elif per_call:
+                per_call[-1][name] = per_call[-1].get(name, 0.0) + us / 1e3
+        per_call = sorted((sum(c.values()), c) for c in per_call if c)
+        if len(per_call) >= calls // 2:
+            return per_call[len(per_call) // 2]
+        print(f"device_ms: trace {attempt + 1} holds the kernels of "
+              f"{len(per_call)} of {calls} calls; tracing again",
+              file=sys.stderr, flush=True)
+    raise AssertionError(f"device_ms: {tries} traces held the kernels of "
+                         f"fewer than {calls // 2} of {calls} calls")
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -600,10 +653,15 @@ def k2_entries(before, delta, device):
     del bases_plain
     n_lanes, n_leaves = int(src.numel()), len(leaves)
     n_kept = int((src >= 0).sum())
+    # The library's gather, one index_select per leaf over the same lanes
+    # (it leaves the lanes of -1, which the stage zeroes, gathered).
+    src_rows = src.clamp(min=0).long()
     stage = dict(
         ms=time_ms(lambda: rl_ops.relayout_stage(leaves, src), device),
         plain_ms=time_ms(lambda: rl_ref.stage_plain(leaves, src), device),
-        library_ms=None, max_abs_err=err_stage, max_ulp=0,
+        library_ms=time_ms(lambda: [torch.index_select(x, 0, src_rows)
+                                    for x in leaves], device),
+        max_abs_err=err_stage, max_ulp=0,
         shape=f"lanes={n_lanes} kept={n_kept} leaves={n_leaves}")
     # Reads the int32 map and each leaf's kept lanes; writes every lane.
     stage["bound_ms"], stage["bound_by"] = bound_ms(
@@ -1330,7 +1388,7 @@ def dlrm_train_phase(device, wrappers, full):
     (equal bit for bit) and once through its plain version (the loss and
     the gradients bit for bit), then that step's Adagrad update from each
     route's gradients, leaf by leaf on clones, bit for bit.  Returns
-    (counters, config, trained params, the first batch)."""
+    (counters, config, trained params, the first 4 batches' ids)."""
     from repro_torch.configs import dlrm_rm2
     from repro_torch.launch import train
     from repro_torch.models import recsys
@@ -1384,10 +1442,9 @@ def dlrm_train_phase(device, wrappers, full):
     state, times, losses = timed_steps(step, state, batches, device)
     counts = read_counters(wrappers)
     peak = torch.cuda.max_memory_allocated()
-    if counts["embed_bag"] != DLRM_STEPS * cfg.n_sparse:
+    if counts["embed_bag"] != DLRM_STEPS:
         raise AssertionError(f"phase i: {counts['embed_bag']} K6 launches "
-                             f"for {DLRM_STEPS} steps of {cfg.n_sparse} "
-                             f"fields")
+                             f"for {DLRM_STEPS} steps (one a forward)")
     if losses[0] != float(loss_k):
         raise AssertionError(f"phase i: the first step's loss {losses[0]} "
                              f"is not the checked {float(loss_k)}")
@@ -1399,13 +1456,13 @@ def dlrm_train_phase(device, wrappers, full):
           f"{len(times)} step_ms_median={med:.2f} step_ms_first="
           f"{times[0]:.2f} items_per_s={batch / med * 1e3:.0f} loss_first="
           f"{losses[0]:.5f} loss_last={losses[-1]:.5f} counters={counts} "
-          f"k6_per_step={counts['embed_bag'] // DLRM_STEPS} "
+          f"k6_per_step={counts['embed_bag'] / DLRM_STEPS:g} "
           f"max_memory_allocated_gb={peak / 1e9:.2f} (the checks: "
           f"{check_peak / 1e9:.2f}) first_step_vs_plain_lookup: loss, "
           f"gradients and updated leaves bit for bit; two backward passes "
           f"bit for bit; init_s={init_s:.2f} seconds="
           f"{time.perf_counter() - t_start:.1f}", flush=True)
-    return counts, cfg, state["params"], batches[0]
+    return counts, cfg, state["params"], [b["sparse"] for b in batches[:4]]
 
 
 def dlrm_score_phase(cfg, params, device, wrappers, full):
@@ -1466,8 +1523,9 @@ def dlrm_score_phase(cfg, params, device, wrappers, full):
                        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
             del logits
     counts = read_counters(wrappers)
-    if counts["embed_bag"] != cfg.n_sparse * sum(r for _, r in runs.values()):
-        raise AssertionError(f"phase j: {counts['embed_bag']} K6 launches")
+    if counts["embed_bag"] != sum(r for _, r in runs.values()):
+        raise AssertionError(f"phase j: {counts['embed_bag']} K6 launches "
+                             f"(one a forward)")
     print(f"phase j (DLRM-RM2 scoring, inference_mode): {'; '.join(out)} "
           f"counters={counts} p99_vs_plain_lookup=bit_for_bit", flush=True)
     return counts
@@ -1516,37 +1574,106 @@ def recsys_train_phase(arch, batch, device, full, steps=3):
           flush=True)
 
 
-def k6_bound(b, n_len, d, elem):
-    """Least time for one K6 call: every looked-up row read once, the ids
-    read once, the (B, D) float32 sums written once; B L D adds."""
-    return bound_ms(b * n_len * d * elem + b * n_len * 4 + b * d * 4,
-                    b * n_len * d)
+def k6_bound(ids3, d, elem):
+    """Least time for one K6 call on ids (B, T, L): each table's distinct
+    looked-up rows read once (a row that several bags look up is one
+    input), every id read once, the (B, T, D) float32 sums written once;
+    B T L D adds.  Returns (ms, "bytes" or "operations", the bytes' ms
+    were every looked-up row read anew)."""
+    b, n, n_len = ids3.shape
+    rows = sum(int(torch.unique(ids3[:, t]).numel()) for t in range(n))
+    rest = ids3.numel() * 4 + b * n * d * 4
+    ms, by = bound_ms(rows * d * elem + rest, b * n * n_len * d)
+    return ms, by, bound_ms(ids3.numel() * d * elem + rest, 0)[0]
 
 
-def k6_entries(device, table, field_ids, full):
-    """K6 against its plain version, bit for bit, at phase i's lookup
-    (one field of the train batch on the largest table: L = 1, D = 64,
-    float32), then multi-hot bags (L = 20) on that table, D = 18 and 50
-    (the scalar path), a bfloat16 copy, and an unaligned view; each timed
-    beside its plain version and ``F.embedding_bag(mode="sum")``.  Returns
-    phase i's shape's entry."""
+def k6_small_checks(device):
+    """The table-batched K6 against its plain version, bit for bit, on
+    small cases: multi-hot bags over mixed vocabularies read through a
+    strided (B, T, L) id view, one-row bags through a strided (B, T)
+    view, bfloat16 tables (16- and 8-byte pieces), D = 18 (8-byte
+    pieces), an unaligned view among aligned tables (the launch one
+    element a lane), 130 tables (3 launches), L = 0, and an ``out`` that
+    is a view of a wider buffer (its other columns left as they were)."""
     from repro_torch.kernels.embed_bag import ops as eb_ops
     from repro_torch.kernels.embed_bag import ref as eb_ref
 
     gen = torch.Generator(device=device)
+    gen.manual_seed(16)
+
+    def tables(vocabs, d, dtype=torch.float32):
+        return [torch.randn(v, d, generator=gen, device=device).to(dtype)
+                for v in vocabs]
+
+    def ids(vocabs, b, n_len):
+        return torch.stack([torch.randint(0, v, (b, n_len), generator=gen,
+                                          device=device, dtype=torch.int32)
+                            for v in vocabs], dim=1)
+
+    vocabs, many = (40, 7, 1000), (300,) * 130
+    wide = ids([v for v in vocabs for _ in "ab"], 300, 7)  # (300, 6, 7)
+    buf = torch.empty(1000 * 64 + 1, device=device)
+    unaligned = buf[1:].view(1000, 64)  # 4 bytes past 16-byte alignment
+    unaligned.normal_(generator=gen)
+    out_buf = torch.full((300, 5, 64), 7.0, device=device)
+    cases = {
+        "T=3 L=7 D=64, strided (B, T, L) ids": (
+            tables(vocabs, 64), wide[:, ::2], None),
+        "T=3 L=1 D=64, strided (B, T) ids": (
+            tables(vocabs, 64), wide[:, 1::2, 3], None),
+        "T=5 L=3 D=8 bfloat16": (
+            tables((50,) * 5, 8, torch.bfloat16), ids((50,) * 5, 300, 3),
+            None),
+        "T=5 L=3 D=12 bfloat16 (8-byte pieces)": (
+            tables((50,) * 5, 12, torch.bfloat16), ids((50,) * 5, 300, 3),
+            None),
+        "T=3 L=3 D=18 (8-byte pieces)": (
+            tables(vocabs, 18), ids(vocabs, 300, 3), None),
+        "T=3 L=2 D=64, an unaligned view": (
+            tables(vocabs[:2], 64) + [unaligned], ids(vocabs, 300, 2), None),
+        "T=130 L=1 D=8 (3 launches)": (
+            tables(many, 8), ids(many, 64, 1)[:, :, 0], None),
+        "T=3 L=0": (tables(vocabs, 64), ids(vocabs, 300, 0), None),
+        "T=3 L=1 D=64 into out[:, 1:4] of (B, 5, D)": (
+            tables(vocabs, 64), ids(vocabs, 300, 1)[:, :, 0],
+            out_buf[:, 1:4]),
+    }
+    for name, (t, i, out) in cases.items():
+        n0 = eb_ops.embedding_bags.launches
+        got = eb_ops.embedding_bags(t, i, out)
+        launches = eb_ops.embedding_bags.launches - n0
+        want = eb_ref.embedding_bags_plain(t, i)
+        if not bits_equal(got, want):
+            raise AssertionError(f"K6 {name}: differs from its plain version "
+                                 f"(max abs {max_abs(got, want)})")
+        if launches != len(eb_ops.launch_groups(len(t))):
+            raise AssertionError(f"K6 {name}: {launches} launches")
+        if out is not None and (got.data_ptr() != out.data_ptr() or not bool(
+                (out_buf[:, ::4] == 7.0).all())):
+            raise AssertionError(f"K6 {name}: not written into out alone")
+    print(f"K6 small cases ({len(cases)}, the table-batched call): bit for "
+          f"bit with the plain version", flush=True)
+
+
+def k6_single_cases(device, table, field_ids, full):
+    """The single-table K6 cases, {name: (table, (B, L) ids)}: phase i's
+    field (``table``, the largest, with the batch's strided column
+    ``field_ids``), multi-hot bags (L = 20) on it, D = 18 and 50 (8-byte
+    pieces) over 1 M rows, a bfloat16 copy and an unaligned view (4 bytes
+    past 16-byte alignment: one element a lane)."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(6)
-    b = field_ids.shape[0]
-    v = table.shape[0]
+    b, v = field_ids.shape[0], table.shape[0]
     small_v = 1_000_000 if full else 1000
     multi = torch.randint(0, v, (b, 20), generator=gen, device=device,
                           dtype=torch.int32)
     small = torch.randint(0, small_v, (b, 20), generator=gen, device=device,
                           dtype=torch.int32)
     buf = torch.empty(table.numel() + 1, device=device)
-    unaligned = buf[1:].view(table.shape)  # 4 bytes past 16-byte alignment
+    unaligned = buf[1:].view(table.shape)
     unaligned.copy_(table)
-    cases = {
-        "phase i field (L=1)": (table, field_ids[:, None]),
+    return {
+        "phase i field (L=1)": (table, field_ids),
         "multi-hot L=20": (table, multi),
         "D=18 L=20": (torch.randn(small_v, 18, generator=gen, device=device),
                       small),
@@ -1555,7 +1682,64 @@ def k6_entries(device, table, field_ids, full):
         "bf16 L=20": (table.bfloat16(), multi),
         "unaligned view L=20": (unaligned, multi),
     }
-    main = None
+
+
+def k6_entries(device, tables, id_sets, full):
+    """K6 against its plain version, bit for bit, at phase i's lookup:
+    DLRM-RM2's trained tables (their values all differ, so a swapped
+    descriptor shows) with a batch's (B, 26) ids as the model passes
+    them, also against the 26 single-table calls.  Then the T = 1 call at
+    six shapes: phase i's field (the largest table, the batch's strided
+    column ``ids[:, i:i+1]``), multi-hot bags (L = 20) on that table,
+    D = 18 and 50 (8-byte pieces), a bfloat16 copy and an unaligned view
+    (one element a lane).  Each timed back to back through its wrapper
+    (``time_ms``) and on the device with a cold L2 (``device_ms``; the
+    lookup rotating over the 4 batches' ids), beside its plain version
+    and, for one table,
+    ``F.embedding_bag(mode="sum")``; the lookup beside 26 of those and a
+    ``torch.stack`` (no single PyTorch call computes it).  Returns the
+    lookup's entry."""
+    from repro_torch.kernels.embed_bag import ops as eb_ops
+    from repro_torch.kernels.embed_bag import ref as eb_ref
+
+    bag = torch.nn.functional.embedding_bag
+    ids = id_sets[0]
+    b, n = ids.shape
+    d = tables[0].shape[1]
+    kern = eb_ops.embedding_bags(tables, ids)
+    plain = eb_ref.embedding_bags_plain(tables, ids)
+    singles = torch.stack([eb_ops.embedding_bag(t, ids[:, i:i + 1])
+                           for i, t in enumerate(tables)], dim=1)
+    err = max_abs(kern, plain)
+    if not (bits_equal(kern, plain) and bits_equal(kern, singles)):
+        raise AssertionError(f"K6 phase i lookup: differs from its plain "
+                             f"version or the single-table calls (max abs "
+                             f"{err}, {max_abs(kern, singles)})")
+    del kern, plain, singles
+    fns = [lambda i=i: eb_ops.embedding_bags(tables, i) for i in id_sets]
+    dev_ms, _ = device_ms(fns, device)
+    ms = time_ms(fns[0], device)
+    plain_ms = time_ms(lambda: eb_ref.embedding_bags_plain(tables, ids),
+                       device)
+    stacked_ms = time_ms(lambda: torch.stack(
+        [bag(ids[:, i:i + 1], t, mode="sum") for i, t in enumerate(tables)],
+        dim=1), device)
+    bnd, by, every_row = k6_bound(ids[:, :, None], d,
+                                  tables[0].element_size())
+    main = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None, max_abs_err=err, max_ulp=0,
+                shape=f"T={n} B={b} L=1 D={d} "
+                      f"{str(tables[0].dtype)[6:]}, the batch's (B, T) ids")
+    print(f"K6 phase i lookup: {main['shape']} bit_for_bit=True (and with "
+          f"the {n} single-table calls) ms={ms:.4f} device_ms={dev_ms:.4f} "
+          f"(cold L2) plain_ms={plain_ms:.4f} library_ms=none (no single "
+          f"call; {n} F.embedding_bag and a stack: {stacked_ms:.4f}) "
+          f"bound_ms={bnd:.4f} ({by}; {every_row:.4f} were every row read "
+          f"anew) device_of_bound={bnd / dev_ms:.3f}", flush=True)
+
+    largest = max(range(n), key=lambda i: tables[i].shape[0])
+    cases = k6_single_cases(device, tables[largest],
+                            ids[:, largest:largest + 1], full)
     for name, (t, idx) in cases.items():
         kern = eb_ops.embedding_bag(t, idx)
         plain = eb_ref.embedding_bag_plain(t, idx)
@@ -1565,21 +1749,18 @@ def k6_entries(device, table, field_ids, full):
                                  f"(max abs {err})")
         del kern, plain
         ms = time_ms(lambda: eb_ops.embedding_bag(t, idx), device)
+        dev_ms, _ = device_ms([lambda: eb_ops.embedding_bag(t, idx)], device)
         plain_ms = time_ms(lambda: eb_ref.embedding_bag_plain(t, idx), device)
-        library_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
-            idx, t, mode="sum"), device)
-        bnd, by = k6_bound(b, idx.shape[1], t.shape[1], t.element_size())
-        e = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                 library_ms=library_ms, max_abs_err=err, max_ulp=0,
-                 shape=f"B={b} L={idx.shape[1]} D={t.shape[1]} V={t.shape[0]}"
-                       f" {str(t.dtype)[6:]}")
-        print(f"K6 {name}: {e['shape']} bit_for_bit=True ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({by}) of_bound={bnd / ms:.3f}",
-              flush=True)
-        if main is None:
-            main = e
-    del cases, buf, unaligned
+        library_ms = time_ms(lambda: bag(idx, t, mode="sum"), device)
+        bnd, by, every_row = k6_bound(idx[:, None], t.shape[1],
+                                      t.element_size())
+        print(f"K6 {name}: B={b} L={idx.shape[1]} D={t.shape[1]} "
+              f"V={t.shape[0]} {str(t.dtype)[6:]} bit_for_bit=True "
+              f"ms={ms:.4f} device_ms={dev_ms:.4f} (cold L2) plain_ms="
+              f"{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+              f"{bnd:.4f} ({by}; {every_row:.4f} every row) "
+              f"device_of_bound={bnd / dev_ms:.3f}", flush=True)
+    del cases
     return main
 
 
@@ -1629,7 +1810,7 @@ def main() -> int:
         "relayout_scatter": rl_ops.relayout_scatter,
         "agg_adam_dense": agg_ops.aggregate_adam,
         "flash_attention": fa_ops.flash_attention,
-        "embed_bag": eb_ops.embedding_bag,
+        "embed_bag": eb_ops.embedding_bags,
     }
     totals = dict.fromkeys(wrappers, 0)
 
@@ -1765,17 +1946,17 @@ def main() -> int:
 
     # ---- phases i-k: the recsys family, DLRM-RM2 at its published widths
     full = scale == 1.0
-    counts_i, rm2, params, batch0 = dlrm_train_phase(device, wrappers, full)
+    counts_i, rm2, params, id_sets = dlrm_train_phase(device, wrappers,
+                                                      full)
     _require(counts_i, ("embed_bag",), "i")
     add_totals(counts_i)
     counts_j = dlrm_score_phase(rm2, params, device, wrappers, full)
     _require(counts_j, ("embed_bag",), "j")
     add_totals(counts_j)
-    largest = int(np.argmax(rm2.vocab_sizes))
-    entries["embed_bag"] = k6_entries(device, params["tables"][largest],
-                                      batch0["sparse"][:, largest].contiguous(),
+    entries["embed_bag"] = k6_entries(device, params["tables"], id_sets,
                                       full)
-    del params, batch0
+    k6_small_checks(device)
+    del params, id_sets
     torch.cuda.empty_cache()
     from repro_torch.configs import dlrm_rm2
 
@@ -1836,7 +2017,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            **({"device_ms": e["device_ms"]} if "device_ms" in e else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the "
           f"card check to the report, the build included", flush=True)

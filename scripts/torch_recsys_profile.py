@@ -32,7 +32,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import torch_serve_profile as sp  # noqa: E402
 
 CLASSES = (  # (class, pattern on the kernel name), first match wins
-    ("K6 embedding bag", r"bag_kernel"),
+    ("K6 embedding bag", r"bags?_kernel"),
     ("embedding gradient (sort, segment sums)",
      r"embedding_backward|radix|sort|segment|partials|compute_grad|"
      r"sum_and_scatter|krn_"),

@@ -3,13 +3,15 @@
 the embedding-bag kernel K6.
 
 **Why K6 sits on DLRM's lookup.**  The reference builds every lookup
-from ``jnp.take`` and leaves its Pallas embedding bag to the tests.  Here
-the one-device ``sharded_embedding_lookup`` is one bag of one row per
-field, ``embedding_bag(table_i, ids[:, i:i+1])``: 26 K6 launches a
-forward at DLRM's 26 fields, stacked to (B, 26, D).  That is how the
-upstream DLRM (facebookresearch/dlrm) feeds Criteo's one-hot fields,
-through ``nn.EmbeddingBag``; and a float32 sum of one row is the row, so
-the values equal the reference's takes bit for bit.  The gradient is the
+from ``jnp.take`` and leaves its Pallas embedding bag to the tests; its
+one-device lookup stacks a take per field, which XLA fuses into one
+program under ``jit``.  Here the one-device ``sharded_embedding_lookup``
+is one table-batched K6 launch, ``embedding_bags(tables, ids)``: one bag
+of one row per field, straight into (B, 26, D) at DLRM's 26 fields.
+That is how the upstream DLRM (facebookresearch/dlrm) feeds Criteo's
+one-hot fields, through ``nn.EmbeddingBag``; and a float32 sum of one
+row is the row, so the values equal the reference's takes bit for bit
+(but for a -0.0, which 0 + -0.0 makes +0.0).  The gradient is the
 dense (V, D) one that ``jax.grad`` of a take gives, summed per row in a
 fixed order (:func:`_dense_grad`): an atomic scatter-add would make two
 identical steps differ, and so does ``F.embedding``'s CUDA backward
@@ -71,23 +73,28 @@ def _dense_grad(grad_rows: torch.Tensor, indices: torch.Tensor,
                                 unsafe=True)
 
 
-class _BagSum(torch.autograd.Function):
-    """Fixed-size sum bags: K6 (or its plain version) forward, and the
-    dense gradient of the reference's take backward."""
+class _BagSums(torch.autograd.Function):
+    """Fixed-size sum bags over T tables, ids (B, T, L): one table-batched
+    K6 launch (or its plain version) forward, (B, T, D) float32; backward,
+    each table's dense gradient of the reference's take."""
 
     @staticmethod
-    def forward(ctx, table, indices, plain: bool):
-        ctx.save_for_backward(indices)
-        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
-        fn = eb_ref.embedding_bag_plain if plain else eb_ops.embedding_bag
-        return fn(table, indices)
+    def forward(ctx, ids, plain: bool, *tables):
+        ctx.save_for_backward(ids)
+        ctx.tables = [(t.shape[0], t.dtype) for t in tables]
+        fn = eb_ref.embedding_bags_plain if plain else eb_ops.embedding_bags
+        return fn(tables, ids)
 
     @staticmethod
     def backward(ctx, grad):
-        indices, = ctx.saved_tensors
-        b, n_len = indices.shape
-        rows = grad.to(ctx.dtype)[:, None, :].expand(b, n_len, grad.shape[-1])
-        return _dense_grad(rows, indices, ctx.n_rows), None, None
+        ids, = ctx.saved_tensors
+        b, _, n_len = ids.shape
+        grads = [
+            _dense_grad(grad[:, t].to(dtype)[:, None, :].expand(
+                b, n_len, grad.shape[-1]), ids[:, t], n_rows)
+            if ctx.needs_input_grad[2 + t] else None
+            for t, (n_rows, dtype) in enumerate(ctx.tables)]
+        return (None, None, *grads)
 
 
 def embedding_bag(table, indices, offsets=None, weights=None, mode="sum", *,
@@ -108,7 +115,8 @@ def embedding_bag(table, indices, offsets=None, weights=None, mode="sum", *,
     if offsets is None:
         if weights is None:
             idx = indices if indices.dtype == torch.int32 else indices.int()
-            out = _BagSum.apply(table, idx, lookup == "plain").to(table.dtype)
+            out = _BagSums.apply(idx[:, None, :], lookup == "plain",
+                                 table)[:, 0].to(table.dtype)
         else:
             rows = F.embedding(indices, table) * weights[..., None]
             out = torch.sum(rows, dim=1)
@@ -133,18 +141,20 @@ def embedding_bag(table, indices, offsets=None, weights=None, mode="sum", *,
 
 # ------------------------------------------------- sharded embedding lookup
 def sharded_embedding_lookup(tables, ids, *, lookup: str = "kernel"):
-    """tables: list of (V_i_padded, D); ids: (B, n_fields) int -> (B,
-    n_fields, D) in the tables' dtype: one K6 bag of one row per field
-    (see the module docstring).  On one device only: the reference's mesh
-    branch is not ported."""
+    """tables: list of (V_i_padded, D) of one dtype; ids: (B, n_fields)
+    int -> (B, n_fields, D) in the tables' dtype: one K6 launch, a bag of
+    one row per field (see the module docstring).  On one device only:
+    the reference's mesh branch is not ported."""
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
             "the row-sharded lookup over a mesh is not ported yet "
             "(ROADMAP.md, Queue 1 item 16)")
+    if lookup not in LOOKUPS:
+        raise ValueError(f"lookup must be one of {LOOKUPS}, got {lookup!r}")
     ids = ids if ids.dtype == torch.int32 else ids.int()
-    return torch.stack([embedding_bag(t, ids[:, i:i + 1], lookup=lookup)
-                        for i, t in enumerate(tables)], dim=1)
+    return _BagSums.apply(ids[:, :, None], lookup == "plain",
+                          *tables).to(tables[0].dtype)
 
 
 def pad_vocab(v: int, multiple: int = 512) -> int:
