@@ -14,6 +14,23 @@ the paper workloads' full tensor inventories:
      K4) on a clone of the state with that tick's pushes, p full and p
      packed, its outputs scattered onto their rows and held against the
      state the fused tick leaves, bit for bit;
+  s. the sharded service at the same inventories: AlexNet, VGG19 and
+     BERT-base resident in a ShardedServiceRuntime (one shard space per
+     Aggregator, every shard's flat/mu/nu a view into one fleet arena per
+     leaf) under a ShardedTickEngine with ``fleet_tick="fused"``; 4 fleet
+     ticks, each exactly one launch of the multi-job Adam kernel over the
+     arena, the last held bit for bit against the per-shard appliers on a
+     clone of the arena; AWD-LM arrives through a sharded replan (its
+     surviving shards' deltas through the relayout kernels, the
+     cross-shard arrivals one index write per leaf); an ElasticScaler
+     over an idle, a hot and an idle window grows the fleet by one shard
+     and merges it back; 2 fleet ticks after each transition.  Every
+     transition is held against the gather oracle (each resident job's
+     packed flat/mu/nu read through its layout before and after, bit for
+     bit) and the runtime's moved bytes and touched jobs against
+     ``sharded_transition_summary``.  The phase must stay within 65 GB at
+     peak and leave at most 256 MiB allocated behind it; its times are
+     printed, never checked;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
      with the block kernel;
@@ -73,29 +90,29 @@ and the recsys family at its published widths (seeded random weights):
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
-against the full-gather oracle; the last tick of each of phases a-c
-against the plain multi-job update; one block step of phase d against
-the plain masked step; one fused step of phase e against the unfused
-optimizer's step; the first step of phase f against the same step with
-the plain ``_adam_math``; the decode's and the K7 prefill's logits
-against their references within the bf16 logit tolerance below.  The
-flash attention kernel is also held against its plain version at the
-prefill's layer shape (bf16: every element within rtol 1e-2 plus a small
-atol, and every query row of every head within 1e-2 relative L2 error;
-see K7_BF16_RTOL) and on small float32 (rtol/atol 2e-5) and bf16 cases
-(non-causal, ragged S, causal S_q < S_k, GQA, head dim 128 ragged,
-strided views of one fused qkv tensor, an unaligned view); a bf16 call
-at head dim 32 must raise; the built library's SASS must hold wgmma
-(HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA).  K6 is
-held against its plain version bit for bit at phase i's whole lookup
-(26 tables, the batch's ids; also against the 26 single-table calls),
-on small table-batched cases (strided ids, bfloat16, 8-byte pieces, an
-unaligned view, 130 tables, L = 0, an ``out`` view), and as a single
-table at phase i's field, multi-hot (L = 20), D = 18 and 50 (8-byte
-pieces), bfloat16 and unaligned-view (one element a lane) shapes; each
-timed back to back and on the device with a cold L2, beside
-``F.embedding_bag``.  Launch counters are set to 0 before each phase and
-read after it.  Any failed check raises.
+against the full-gather oracle (phase s: the gather oracle above); the
+last tick of each of phases a-c against the plain multi-job update; one
+block step of phase d against the plain masked step; one fused step of
+phase e against the unfused optimizer's step; the first step of phase f
+against the same step with the plain ``_adam_math``; the decode's and
+the K7 prefill's logits against their references within the bf16 logit
+tolerance below.  The flash attention kernel is also held against its
+plain version at the prefill's layer shape (bf16: every element within
+rtol 1e-2 plus a small atol, and every query row of every head within
+1e-2 relative L2 error; see K7_BF16_RTOL) and on small float32
+(rtol/atol 2e-5) and bf16 cases (non-causal, ragged S, causal S_q < S_k,
+GQA, head dim 128 ragged, strided views of one fused qkv tensor, an
+unaligned view); a bf16 call at head dim 32 must raise; the built
+library's SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG) and no
+mma.sync (HMMA).  K6 is held against its plain version bit for bit at
+phase i's whole lookup (26 tables, the batch's ids; also against the 26
+single-table calls), on small table-batched cases (strided ids,
+bfloat16, 8-byte pieces, an unaligned view, 130 tables, L = 0, an
+``out`` view), and as a single table at phase i's field, multi-hot (L =
+20), D = 18 and 50 (8-byte pieces), bfloat16 and unaligned-view (one
+element a lane) shapes; each timed back to back and on the device with a
+cold L2, beside ``F.embedding_bag``.  Launch counters are set to 0 before
+each phase and read after it.  Any failed check raises.
 
 Output: per-phase lines, one JSON line of kernels (time, bound, plain
 and library times, launches on the main path), the card's name and power
@@ -308,36 +325,52 @@ def _no_model_loss(params, batch):
 
 
 class Service:
-    """The full-size shared service and what the phases need of it."""
+    """The full-size shared service and what the phases need of it; with
+    ``sharded`` a ShardedServiceRuntime under a fused-fleet-tick engine
+    (phase s), whose job sizes keep their full-size execution times at a
+    rehearsal's scale, so the control plane places them as at full size."""
 
     LR = {"alexnet": 1e-3, "vgg19": 5e-4, "bert": 1e-4, "awd-lm": 3e-3}
 
-    def __init__(self, device, scale):
+    def __init__(self, device, scale, sharded=False):
         from repro_torch.core import ParameterService
-        from repro_torch.ps.service_runtime import ServiceRuntime
+        from repro_torch.ps.service_runtime import (
+            ServiceRuntime,
+            ShardedServiceRuntime,
+        )
 
-        self.device, self.scale = device, scale
+        self.device, self.scale, self.sharded = device, scale, sharded
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(0)
         self.svc = ParameterService(total_budget=16, n_clusters=1,
                                     plan_pad_to=128)
-        self.rt = ServiceRuntime(self.svc, device=device)
-        self.eng = self.rt.attach_engine(max_staleness=1)
+        if sharded:
+            self.rt = ShardedServiceRuntime(self.svc, device=device)
+            self.eng = self.rt.attach_engine(max_staleness=1,
+                                             fleet_tick="fused")
+        else:
+            self.rt = ServiceRuntime(self.svc, device=device)
+            self.eng = self.rt.attach_engine(max_staleness=1)
         self._masks, self._mask_key = {}, {}
+
+    @property
+    def plan(self):
+        return self.rt.splan if self.sharded else self.rt.plan
 
     def params(self, model):
         return {k: torch.randn(n, generator=self.gen, device=self.device)
                 * 0.02 for k, n in chunked_inventory(model, self.scale)}
 
     def add(self, model):
+        extra = {"agg_throughput": 7e9 * self.scale} if self.sharded else {}
         self.rt.add_job(model, self.params(model), _no_model_loss,
-                        required_servers=2, lr=self.LR[model])
+                        required_servers=2, lr=self.LR[model], **extra)
 
     def payload_mask(self, job):
         """The job's packed payload lanes (zero gradient on padding keeps
         every non-payload lane of the state zero, as packing does)."""
-        layout = self.rt.plan.job_layout(job)
-        key = (id(self.rt.plan), job)
+        layout = self.plan.job_layout(job)
+        key = (id(self.plan), job)
         if self._mask_key.get(job) != key:
             mask = torch.zeros(layout.packed_len, dtype=torch.bool)
             for _, start, size, _, _ in layout.slots:
@@ -687,6 +720,271 @@ def k2_entries(before, delta, device):
     whole = dict(ms=stage["ms"] + scatter["ms"],
                  bound_ms=bound_ms(n_leaves * 4 * (n_kept + n_lanes), 0)[0])
     return stage, scatter, whole
+
+
+# ------------------------------------------- phase s: the sharded service
+S_PEAK_GB = 65.0  # phase s's budget of device memory at peak
+S_LEAK_BYTES = 256 << 20  # what phase s may leave allocated behind it
+
+
+def gather_jobs(s: Service, jobs):
+    """The gather oracle of a sharded transition: each job's packed
+    flat/mu/nu read through its ShardedJobLayout, its tensors' lanes
+    ordered by leaf key (a transition may move a tensor to another shard
+    and so reorder the packed vector), as new tensors."""
+    from repro_torch.ps.runtime import _gather_packed, _layout_rows
+
+    out = {}
+    for j in jobs:
+        layout = s.plan.job_layout(j)
+        rows = _layout_rows(layout, s.device)
+        slots = sorted(layout.slots)
+        out[j] = {}
+        for k in ("flat", "mu", "nu"):
+            packed = _gather_packed(
+                layout, rows, [s.rt.states[sid][k]
+                               for sid in layout.shard_ids])
+            out[j][k] = torch.cat([packed[start:start + size]
+                                   for _, start, size, _, _ in slots])
+            del packed
+    return out
+
+
+def fleet_heads(s: Service):
+    """The head piece of every pending job on every lane, per lane:
+    [(shard id, jobs, pieces, counts)] (what the next fleet tick applies)."""
+    heads = []
+    for sid in s.plan.shard_ids:
+        lane = s.eng._lanes.get(sid)
+        jobs = tuple(j for j in s.rt.job_ids
+                     if lane is not None and lane.queues.get(j))
+        if jobs:
+            hs = [lane.queues[j][0] for j in jobs]
+            heads.append((sid, jobs, tuple(h[0] for h in hs),
+                          tuple(h[1] for h in hs)))
+    return heads
+
+
+def per_shard_on_clone(s: Service, clone, heads):
+    """The per-shard oracle: each lane's own applier (one K1 launch over
+    the lane's views) applies its head pieces to ``clone`` (a copy of the
+    fleet arena taken before the fused tick).  Returns the launches."""
+    offsets = dict(zip(s.plan.shard_ids, s.plan.concat_view()[0]))
+    for sid, jobs, gs, counts in heads:
+        off, n = offsets[sid], s.plan.shard_of(sid).total_len
+        views = {k: clone[k][off:off + n] for k in clone}
+        s.eng._build_applier(sid, jobs)(views, gs, counts)
+    return len(heads)
+
+
+def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
+    """``n`` rounds: every resident job pushes one seeded packed gradient
+    (one piece per hosting shard), then ONE fleet tick, timed on the host
+    clock to a synchronize.  Each tick must apply every piece and add
+    exactly one to ``TickStats.n_launches`` and to K1's counter.  With
+    ``oracle_last`` the last tick is held against the per-shard oracle on
+    a clone of the arena, bit for bit.  Returns (tick ms, the host's share
+    of each: ms until ``tick()`` returns, before the synchronize; the
+    oracle's K1 launches)."""
+    k1 = wrappers["agg_adam_multijob_fused"]
+    times, enqueue, oracle = [], [], 0
+    for i in range(n):
+        s.push_all()
+        pieces = sum(len(s.plan.job_layout(j).shard_ids)
+                     for j in s.rt.job_ids)
+        clone = heads = None
+        if oracle_last and i == n - 1:
+            clone = {k: v.clone() for k, v in s.rt.arena.items()}
+            heads = fleet_heads(s)
+        sync(s.device)
+        launches0, k1_0 = s.eng.stats.n_launches, k1.launches
+        t0 = time.perf_counter()
+        applied = s.eng.tick()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        sync(s.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if (s.eng.stats.n_launches - launches0, k1.launches - k1_0) != (1, 1):
+            raise AssertionError(
+                f"phase s: a fleet tick made {k1.launches - k1_0} K1 "
+                f"launches and {s.eng.stats.n_launches - launches0} "
+                f"engine launches (want 1 and 1)")
+        if applied != pieces:
+            raise AssertionError(f"phase s: a fleet tick applied {applied} "
+                                 f"of {pieces} pieces")
+        if clone is not None:
+            k1_0 = k1.launches
+            per_shard_on_clone(s, clone, heads)
+            oracle += k1.launches - k1_0
+            for k, v in clone.items():
+                if not bits_equal(v, s.rt.arena[k]):
+                    raise AssertionError(
+                        f"phase s: the fused fleet tick and the per-shard "
+                        f"oracle differ in {k} (max abs "
+                        f"{max_abs(v, s.rt.arena[k])})")
+            del clone, heads
+    return times, enqueue, oracle
+
+
+def sharded_transition(s: Service, what: str, fn, wrappers):
+    """Drain, read every resident job's packed state through its layout,
+    run the replan ``fn``, then hold the migrated states against those
+    reads bit for bit and the runtime's moved bytes and touched jobs
+    against ``sharded_transition_summary``.  Returns (fn's result,
+    replan s, K2 launches (stage, scatter), the summary)."""
+    from repro_torch.ps.elastic import sharded_transition_summary
+
+    s.eng.drain()
+    jobs = s.rt.job_ids
+    before = gather_jobs(s, jobs)
+    old = s.plan
+    k2_0 = (wrappers["relayout_stage"].launches,
+            wrappers["relayout_scatter"].launches)
+    sync(s.device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(s.device)
+    replan_s = time.perf_counter() - t0
+    k2 = (wrappers["relayout_stage"].launches - k2_0[0],
+          wrappers["relayout_scatter"].launches - k2_0[1])
+    new = s.plan
+    if new is old:
+        return out, replan_s, k2, None
+    moved, touched = sharded_transition_summary(old, new)
+    if (s.rt.last_relayout_bytes, s.rt.last_replan_touched) != (
+            12 * moved, touched):
+        raise AssertionError(
+            f"phase s {what}: moved {s.rt.last_relayout_bytes} B and "
+            f"touched {s.rt.last_replan_touched}; the summary says "
+            f"{12 * moved} B and {touched}")
+    for j in jobs:
+        after = gather_jobs(s, (j,))[j]
+        for k, v in before.pop(j).items():
+            if not bits_equal(after[k], v):
+                raise AssertionError(
+                    f"phase s {what}: {j}'s packed {k} differs from the "
+                    f"gather oracle (max abs {max_abs(after[k], v)})")
+        del after
+    return out, replan_s, k2, (moved, touched)
+
+
+def s_line(step, times, stats0, stats1, replan_s, peak_gb, extra=""):
+    ticks = stats1.n_ticks - stats0.n_ticks
+    per_tick = (stats1.n_launches - stats0.n_launches) / max(1, ticks)
+    ms = (f"tick_ms_median={statistics.median(times):.3f} tick_ms_mean="
+          f"{statistics.mean(times):.3f} "
+          f"tick_ms={[round(t, 3) for t in times]}"
+          if times else "tick_ms=none")
+    replan = "none" if replan_s is None else f"{replan_s:.2f}"
+    return (f"phase s {step}: ticks={ticks} {ms} replan_s={replan} "
+            f"peak_gb={peak_gb:.2f} launches_per_tick={per_tick:g}{extra} "
+            f"host_maxrss_gb={host_rss_gb():.2f}")
+
+
+def sharded_phase(device, wrappers, scale, flat_tick_ms):
+    """Phase s: the sharded service at the paper inventories.  AlexNet,
+    VGG19 and BERT-base resident in a ShardedServiceRuntime; 4 fused fleet
+    ticks, the last held against the per-shard oracle; AWD-LM arrives
+    through a sharded replan; then an ElasticScaler over idle, hot and
+    idle windows grows the fleet by one shard and merges it back.  Every
+    transition is held against the gather oracle and the summary's
+    accounting.  Returns the phase's launch counts (the oracle's K1
+    launches taken out) and its peak GB."""
+    from repro_torch.ps import elastic
+    from repro_torch.ps.autoscaler import AutoscalerConfig, ElasticScaler
+
+    t_phase = time.perf_counter()
+    elastic.clear_plan_cache()
+    reset_counters(wrappers)
+    peaks, oracle = [], 0
+
+    def step_start():
+        torch.cuda.reset_peak_memory_stats()
+        return dataclasses.replace(s.eng.stats)
+
+    def peak():
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        return peaks[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    s = Service(device, scale, sharded=True)
+    t0 = time.perf_counter()
+    for model in ("alexnet", "vgg19", "bert"):
+        s.add(model)
+    sync(device)
+    print(f"phase s set-up: jobs={list(s.rt.job_ids)} shards="
+          f"{s.rt.n_shards} lanes_per_shard="
+          f"{[sp.total_len for sp in s.plan.shards]} payload="
+          f"{s.plan.payload_elements} seconds={time.perf_counter() - t0:.2f}"
+          f" peak_gb={peak():.2f} host_maxrss_gb={host_rss_gb():.2f}",
+          flush=True)
+
+    stats0 = step_start()
+    times, enqueue, n = fleet_ticks(s, 4, wrappers, oracle_last=True)
+    oracle += n
+    print(s_line("1 (3 jobs)", times, stats0, s.eng.stats, None, peak(),
+                 f" fused_vs_per_shard=bit_for_bit per_shard_k1_launches={n}"
+                 f" host_enqueue_ms={[round(t, 3) for t in enqueue]}"
+                 f" flat_tick_ms_median(phase a)="
+                 f"{statistics.median(flat_tick_ms):.3f}"), flush=True)
+
+    stats0 = step_start()
+    _, replan_s, k2, (moved, touched) = sharded_transition(
+        s, "arrival", lambda: s.add("awd-lm"), wrappers)
+    if min(k2) < 1:
+        raise AssertionError(f"phase s arrival: K2 launches {k2}")
+    times, _, _ = fleet_ticks(s, 2, wrappers)
+    print(s_line("2 (AWD-LM arrives)", times, stats0, s.eng.stats, replan_s,
+                 peak(), f" shards={s.rt.n_shards} moved_elements={moved} "
+                 f"touched={list(touched)} k2_launches(stage+scatter)="
+                 f"{k2[0]}+{k2[1]} gather_oracle=bit_for_bit"), flush=True)
+    elastic.clear_plan_cache()
+
+    # The scaler: min_shards holds the fleet at its size when idle and
+    # max_shards lets it grow by one; shard_capacity puts two idle rounds
+    # at or below the fleet's size however the pieces fall (each job has
+    # at most one piece a shard), and the hot window's rounds above it.
+    n0, n_jobs = s.rt.n_shards, len(s.rt.job_ids)
+    cap = 2 * n_jobs * (n0 + 1) / n0
+    hot = 2 * (n0 + 1) + 1
+    scaler = ElasticScaler(s.rt, AutoscalerConfig(
+        shard_capacity=cap, min_shards=n0, max_shards=n0 + 1, cooldown=1))
+    for name, rounds, want in (("idle", 2, "hold"), ("hot", hot, "grow"),
+                               ("idle", 2, "shrink")):
+        stats0 = step_start()
+        times, _, _ = fleet_ticks(s, rounds, wrappers)
+        d, replan_s, k2, summary = sharded_transition(
+            s, f"{name} window", scaler.observe, wrappers)
+        if d.action != want:
+            raise AssertionError(f"phase s: the {name} window's decision is "
+                                 f"{d.action}, not {want}: {d}")
+        moved = "" if summary is None else (
+            f" moved_elements={summary[0]} touched={list(summary[1])} "
+            f"k2_launches(stage+scatter)={k2[0]}+{k2[1]} "
+            f"gather_oracle=bit_for_bit")
+        print(f"phase s ScaleDecision: window={d.window} load={d.load:g} "
+              f"shards {d.n_shards_before}->{d.n_shards_after} action="
+              f"{d.action} relayout_bytes={d.relayout_bytes}", flush=True)
+        print(s_line(f"{len(peaks)} ({name} window, {rounds} rounds, "
+                     f"{d.action})", times, stats0, s.eng.stats,
+                     None if summary is None else replan_s, peak(), moved),
+              flush=True)
+        elastic.clear_plan_cache()
+    stats0 = step_start()
+    times, _, _ = fleet_ticks(s, 2, wrappers)
+    print(s_line(f"{len(peaks)} (after the merge)", times, stats0,
+                 s.eng.stats, None, peak(), f" shards={s.rt.n_shards}"),
+          flush=True)
+    counts = read_counters(wrappers)
+    counts["agg_adam_multijob_fused"] -= oracle
+    if max(peaks) > S_PEAK_GB:
+        raise AssertionError(f"phase s: {max(peaks):.2f} GB at peak, over "
+                             f"its {S_PEAK_GB} GB budget")
+    print(f"phase s (sharded service): counters={counts} peak_gb="
+          f"{max(peaks):.2f} engine={dataclasses.asdict(s.eng.stats)} "
+          f"seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    del s, scaler
+    elastic.clear_plan_cache()
+    return counts
 
 
 # -------------------------------------------------------- the MLP phase
@@ -1835,6 +2133,7 @@ def main() -> int:
     stats0 = dataclasses.replace(s.eng.stats)
     reset_counters(wrappers)
     times, _ = run_ticks(s, 8, check_tick=True)
+    flat_tick_ms = times
     counts = read_counters(wrappers)
     _require(counts, ("agg_adam_multijob_fused",), "a")
     add_totals(counts)
@@ -1891,6 +2190,24 @@ def main() -> int:
           f"its rows, equal to the K1 tick's state bit for bit", flush=True)
     print(f"engine stats: {s.rt.debug_stats()['engine']}", flush=True)
     del s
+
+    # ---- phase s: the sharded service, AWD-LM's arrival and a scaler's
+    # scale-out and scale-in, within its memory budget and leaving nothing
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    counts = sharded_phase(device, wrappers, scale, flat_tick_ms)
+    _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
+                      "relayout_scatter"), "s")
+    add_totals(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaked = torch.cuda.memory_allocated() - baseline
+    if leaked > S_LEAK_BYTES:
+        raise AssertionError(f"phase s left {leaked / 2**20:.1f} MiB "
+                             f"allocated (budget {S_LEAK_BYTES >> 20} MiB)")
+    print(f"phase s leak check: {leaked} bytes left allocated (budget "
+          f"{S_LEAK_BYTES})", flush=True)
 
     # ---- phase d: real models on the device
     counts = mlp_phase(device, wrappers)

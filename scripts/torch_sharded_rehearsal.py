@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py``'s phase s (the sharded service) on the CPU.
+
+Runs ``chip_smoke.sharded_phase`` on ``device="cpu"`` at a small scale of
+the paper inventories, so its control flow, its oracles (fused fleet tick
+against the per-shard appliers, every transition against the gather
+oracle) and the scaler's hold/grow/shrink decisions can be checked without
+a card.  The kernel wrappers count only CUDA launches, so each is wrapped
+here in a stand-in that counts its calls; the card-only memory calls
+read 0.  Times printed by a rehearsal are CPU times, not the card's.
+
+    PYTHONPATH=src python3 scripts/torch_sharded_rehearsal.py [--scale 0.001]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels.agg_adam import ops as agg_ops  # noqa: E402
+from repro_torch.kernels.relayout import ops as rl_ops  # noqa: E402
+
+
+def counting(module, name):
+    """Replace ``module.name`` by a stand-in that counts its calls in
+    ``.launches``, as the wrapper counts its launches on the card."""
+    real = getattr(module, name)
+
+    def stand_in(*args, **kwargs):
+        stand_in.launches += 1
+        return real(*args, **kwargs)
+
+    stand_in.launches = 0
+    setattr(module, name, stand_in)
+    return stand_in
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=float, default=0.001,
+                    help="fraction of every workload tensor")
+    args = ap.parse_args()
+    wrappers = {
+        "agg_adam_multijob_fused": counting(
+            agg_ops, "aggregate_adam_multijob_fused"),
+        "relayout_stage": counting(rl_ops, "relayout_stage"),
+        "relayout_scatter": counting(rl_ops, "relayout_scatter"),
+    }
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    chip_smoke.sync = lambda device: None
+    counts = chip_smoke.sharded_phase(torch.device("cpu"), wrappers,
+                                      args.scale, flat_tick_ms=[0.0])
+    print(f"rehearsal at scale {args.scale}: calls {counts}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,14 @@ a state from one FlatPlan to another:
     with the oracle on valid states (non-payload lanes zero).  A buffer
     that keeps its length is updated IN PLACE.
 
+``migrate_sharded_state``
+    The sharded fleet's transition: each surviving shard space migrates
+    through its own delta (the same kernels), a joining shard starts at
+    zero, and segments that changed Aggregator arrive with one index
+    write per leaf.  The input states are only read: the new states are
+    written into fresh buffers (the runtime's next fleet arena), so an
+    aborted replan leaves the caller's states whole.
+
 ``compile_migration_delta`` builds the delta from the plans' segments:
 a common segment moves rigidly (one shift for all its lanes), so the
 runs, the vacated intervals and the touched blocks follow from
@@ -35,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import host_to_device
-from .plan import FlatPlan, plan_migration_bytes
+from .plan import FlatPlan, ShardedPlan, plan_migration_bytes
 
 
 class PlanPerm(NamedTuple):
@@ -455,6 +463,155 @@ def migrate_flat_state_delta(state: Dict[str, Any], old: FlatPlan,
             and v.shape[0] == delta.old_len]
     moved = relayout_ops.relayout([state[k] for k in keys], delta)
     return dict(state, **dict(zip(keys, moved)))
+
+
+# ------------------------------------------------------- sharded transitions
+LEAVES = ("flat", "mu", "nu")  # the 1-D leaves of a shard space's state
+
+
+def sharded_transition_summary(old: ShardedPlan, new: ShardedPlan):
+    """Segment-level view of a SHARDED plan transition, O(segments):
+    ``(moved_elements, touched_jobs)``.  A segment moved iff its
+    ``(shard_id, offset)`` home changed (a shard joining or leaving does
+    not move the segments that stayed on their own Aggregator);
+    ``touched_jobs`` diffs each job's per-shard layout fingerprint, keyed
+    by the stable ``agg_id``.  Equal to ``migrate_sharded_state``'s
+    executed accounting."""
+    key = ("ssummary", old, new)
+    cached = _PAIR_CACHE.get(key)
+    if cached is not None:
+        return cached
+    old_by = old.by_skey
+    moved = 0
+    for sid, sp in zip(new.shard_ids, new.shards):
+        for seg in sp.segments:
+            prev = old_by.get(seg.skey)
+            if prev is None:
+                continue
+            psid, pseg = prev
+            if pseg.size != seg.size:
+                raise ValueError(
+                    f"segment {seg.skey} changed size "
+                    f"{pseg.size} -> {seg.size}")
+            if psid != sid or pseg.offset != seg.offset:
+                moved += seg.size
+
+    def sigs(plan: ShardedPlan) -> Dict[str, Dict[str, Tuple]]:
+        out: Dict[str, Dict[str, Tuple]] = {}
+        for sid, sp in zip(plan.shard_ids, plan.shards):
+            for j, sig in _job_layout_sigs(sp).items():
+                out.setdefault(j, {})[sid] = sig
+        return out
+
+    old_sigs, new_sigs = sigs(old), sigs(new)
+    touched = tuple(sorted(
+        j for j in set(old_sigs) | set(new_sigs)
+        if old_sigs.get(j) != new_sigs.get(j)))
+    summary = (moved, touched)
+    _PAIR_CACHE.put(key, summary)
+    return summary
+
+
+def _relayout_into(src: List[torch.Tensor], dst: List[torch.Tensor],
+                   delta: MigrationDelta) -> None:
+    """One shard's delta executed from ``src`` (only read) into the zeroed
+    ``dst`` leaves of the new length: the lanes both lengths share are
+    copied, then the touched blocks are staged from ``src`` and scattered
+    into ``dst`` by K2 -- what ``relayout`` leaves in place, written into
+    new buffers instead."""
+    from ..kernels.relayout import ops as relayout_ops
+
+    n = min(delta.old_len, delta.new_len)
+    for x, y in zip(src, dst):
+        y[:n].copy_(x[:n])
+    if not delta.touched_blocks.size:
+        return
+    src_map, dst_blocks = relayout_ops.stage_tables(delta, dst[0].device)
+    staged = relayout_ops.relayout_stage(src, src_map)
+    relayout_ops.relayout_scatter(dst, staged, dst_blocks, block=delta.block)
+
+
+def _run_index(runs, device) -> torch.Tensor:
+    """The lanes of ``(start, length)`` runs, concatenated, as one int64
+    index built on ``device`` (no O(lanes) host array)."""
+    starts = torch.tensor([s for s, _ in runs], dtype=torch.int64)
+    sizes = torch.tensor([n for _, n in runs], dtype=torch.int64)
+    total = int(sizes.sum())
+    first = torch.cumsum(sizes, 0) - sizes  # run i's place in the concat
+    idx = torch.repeat_interleave((starts - first).to(device),
+                                  sizes.to(device), output_size=total)
+    return idx.add_(torch.arange(total, dtype=torch.int64, device=device))
+
+
+def migrate_sharded_state(
+    states: Dict[str, Dict[str, torch.Tensor]],
+    old: ShardedPlan,
+    new: ShardedPlan,
+    *,
+    out: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int, Tuple[str, ...]]:
+    """Re-lay per-shard states (``agg_id`` -> flat/mu/nu of the shard's
+    ``total_len``) onto a new ShardedPlan:
+
+      * every SURVIVING shard (same ``agg_id`` in both plans) runs its own
+        :class:`MigrationDelta` through K2, O(its moved bytes) on top of
+        one copy of the lanes it keeps;
+      * a shard that joined the fleet starts at zero;
+      * segments that changed Aggregator arrive with ONE sorted, unique
+        index write per leaf (plain PyTorch, as the reference does it
+        outside its kernel).
+
+    ``out`` maps each new shard id to its zeroed destination state (the
+    runtime passes views of its next fleet arena); without it every shard
+    gets fresh zero buffers.  The input ``states`` are only read, so a
+    failure at any point leaves the caller's states whole; nothing
+    commits until the caller installs the result.
+
+    Returns ``(new_states, moved_elements, touched_jobs)``; the count and
+    the touched set equal :func:`sharded_transition_summary`'s."""
+    device = next(iter(states.values()))["flat"].device
+    moved = 0
+    touched: set = set()
+    new_states: Dict[str, Dict[str, torch.Tensor]] = {}
+    old_ids = set(old.shard_ids)
+    old_by = old.by_skey
+    for sid, sp in zip(new.shard_ids, new.shards):
+        st = (out[sid] if out is not None else
+              {k: torch.zeros(sp.total_len, dtype=torch.float32,
+                              device=device) for k in LEAVES})
+        prev = states.get(sid) if sid in old_ids else None
+        if prev is not None:
+            delta = compile_migration_delta(old.shard_of(sid), sp)
+            _relayout_into([prev[k] for k in LEAVES],
+                           [st[k] for k in LEAVES], delta)
+            moved += delta.moved_elements
+            touched.update(delta.touched_jobs)
+        # Cross-shard arrivals: their destination lanes are zero after
+        # the shard's own delta (no common segment covers them there).
+        # Segments are in offset order, so the index is sorted and unique.
+        arrivals = []
+        for seg in sp.segments:
+            prev_home = old_by.get(seg.skey)
+            if prev_home is None or prev_home[0] == sid:
+                continue  # a new job's segment, or covered by the delta
+            arrivals.append((seg, *prev_home))
+            moved += seg.size
+            touched.add(seg.job_id)
+        if arrivals:
+            idx = _run_index([(seg.offset, seg.size)
+                              for seg, _, _ in arrivals], device)
+            for k in LEAVES:
+                vals = torch.cat([
+                    states[psid][k][pseg.offset : pseg.offset + pseg.size]
+                    for _, psid, pseg in arrivals])
+                st[k].index_copy_(0, idx, vals)
+                del vals
+            del idx
+        new_states[sid] = st
+    # Jobs that only lived on REMOVED shards (or left) are touched too.
+    _, sum_touched = sharded_transition_summary(old, new)
+    touched.update(sum_touched)
+    return new_states, moved, tuple(sorted(touched))
 
 
 def migration_bytes(old: FlatPlan, new: FlatPlan,

@@ -1,5 +1,5 @@
-"""Service-tick engine: batched multi-job aggregation with bounded
-staleness, over one flat shared space (PyTorch).
+"""Service-tick engines: batched multi-job aggregation with bounded
+staleness, over one flat shared space or a sharded fleet (PyTorch).
 
 The counterpart of ``repro.ps.engine.ServiceTickEngine``:
 
@@ -31,6 +31,14 @@ Read tier: a :class:`~repro_torch.ps.replica.ReplicaSet` registers as
 ``engine._replica_hub`` and is offered a snapshot every applying tick,
 pre-apply, at the rollback-snapshot point.  What it publishes is always a
 clone (the rollback anchor's, or its own), never the live buffers.
+
+:class:`ShardedTickEngine` is the counterpart of the reference's
+sharded engine: one tick loop per shard space (``tick_shard``), a job's
+push split into one piece per hosting shard, and ``tick_fleet`` applying
+every pending piece of the fleet in ONE launch of K1.  Its shard states
+are views into one fleet arena per leaf (``ShardedServiceRuntime.arena``),
+so the fleet tick hands K1 the arena with block tables rebased by each
+shard's offset, and no state is concatenated or sliced back.
 """
 
 from __future__ import annotations
@@ -47,10 +55,18 @@ from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
 from .faults import HEALTHY, QUARANTINED, EngineQuarantinedError, RetryPolicy
 from .plan import FlatPlan
-from .runtime import _gather_owned, _not_in_slice, _pack_slots, _unpack_slots
+from .runtime import (
+    _gather_owned,
+    _gather_packed,
+    _layout_rows,
+    _not_in_slice,
+    _pack_slots,
+    _split_pieces,
+    _unpack_slots,
+)
 
 __all__ = ["PullDiff", "PullVersion", "PushFuture", "ServiceTickEngine",
-           "TickStats"]
+           "ShardedTickEngine", "TickStats"]
 
 
 class PushFuture:
@@ -58,13 +74,17 @@ class PushFuture:
     push dropped without applying is CANCELLED: ``result()`` raises
     instead of forcing ticks forever."""
 
-    __slots__ = ("job_id", "_engine", "_done", "_step", "_cancelled")
+    __slots__ = ("job_id", "_engine", "_done", "_step", "_remaining",
+                 "_cancelled")
 
-    def __init__(self, job_id: str, engine):
+    def __init__(self, job_id: str, engine, parts: int = 1):
         self.job_id = job_id
         self._engine = engine
         self._done = False
         self._step = None
+        # Under the sharded engine one push is one PIECE per hosting
+        # shard; the future resolves when the last piece applies.
+        self._remaining = int(parts)
         self._cancelled = None  # str reason once cancelled
 
     def done(self) -> bool:
@@ -95,10 +115,16 @@ class PushFuture:
                     raise stall
         return self._step
 
-    def _resolve(self, step: int) -> None:
-        if not self._done:
+    def _resolve(self, step: int) -> bool:
+        """One piece applied; True if this completed the push."""
+        if self._done:
+            return False
+        self._remaining -= 1
+        if self._remaining <= 0:
             self._done = True
             self._step = int(step)
+            return True
+        return False
 
     def _cancel(self, reason: str) -> None:
         if not self._done and self._cancelled is None:
@@ -124,7 +150,7 @@ class TickStats:
     n_rollbacks: int = 0  # failed applies recovered by snapshot restore
     n_replayed: int = 0  # applied pushes re-queued for replay by rollbacks
     n_quarantines: int = 0  # lanes that exhausted retries and stopped
-    n_fleet_fallbacks: int = 0  # (sharded engine, not ported yet)
+    n_fleet_fallbacks: int = 0  # (fleet fall-back to per-shard: item 8)
     n_lease_expirations: int = 0  # (leases, not ported yet)
     push_bytes_raw: int = 0  # fp32 bytes of every submitted push
     push_bytes_wire: int = 0  # same pushes on the wire (fp32: equal)
@@ -211,14 +237,33 @@ def _flat_job_hp(info) -> Tuple[float, float, float, float]:
             float(so.get("b2", 0.999)), float(so.get("eps", 1e-8)))
 
 
-def _fused_tables(layouts, infos, hp_of):
+def _sharded_job_hp(info) -> Tuple[float, float, float, float]:
+    """(lr, b1, b2, eps) of one sharded-runtime job (first-class fields)."""
+    return (float(info["lr"]), float(info["b1"]), float(info["b2"]),
+            float(info["eps"]))
+
+
+def _fused_tables(layouts, infos, hp_of, base_blocks=None):
     """The tables one fused multi-job apply needs: the concatenated
     owned-block index table, per-entry block counts, and per-entry
-    ``(lr, b1, b2, eps)`` columns."""
-    block_idx = np.concatenate([l.blocks.astype(np.int32) for l in layouts])
+    ``(lr, b1, b2, eps)`` columns.  The fleet tick passes ``base_blocks``,
+    each entry's shard offset in the fleet arena in blocks, which rebases
+    a shard-local block table to arena block ids."""
+    if base_blocks is None:
+        base_blocks = (0,) * len(layouts)
+    block_idx = np.concatenate([l.blocks.astype(np.int32) + np.int32(b)
+                                for l, b in zip(layouts, base_blocks)])
     job_sizes = tuple(int(l.blocks.size) for l in layouts)
     lr, b1, b2, eps = zip(*(hp_of(i) for i in infos))
     return block_idx, job_sizes, (lr, b1, b2, eps)
+
+
+def _device_tables(block_idx, job_sizes, device):
+    """An applier's block table and job-slot map, on ``device`` once."""
+    job_slot = np.repeat(np.arange(len(job_sizes), dtype=np.int32),
+                         np.asarray(job_sizes, np.int64))
+    return (host_to_device(block_idx, device, torch.int32),
+            host_to_device(job_slot, device, torch.int32))
 
 
 def _fused_state_update(state, gs, counts, *, block, block_idx, job_slot,
@@ -706,11 +751,8 @@ class ServiceTickEngine:
         infos = [self.runtime._jobs[j] for j in job_ids]
         block_idx, job_sizes, hps = _fused_tables(layouts, infos,
                                                   _flat_job_hp)
-        device = self.runtime.device
-        job_slot = np.repeat(np.arange(len(job_sizes), dtype=np.int32),
-                             np.asarray(job_sizes, np.int64))
-        block_idx_t = host_to_device(block_idx, device, torch.int32)
-        job_slot_t = host_to_device(job_slot, device, torch.int32)
+        block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
+                                                 self.runtime.device)
         block = plan.block_align
 
         def apply(state, gs):
@@ -720,5 +762,523 @@ class ServiceTickEngine:
                 job_slot=job_slot_t, job_sizes=job_sizes, hps=hps)
             return dict(state, counts=dict(
                 state["counts"], **dict(zip(job_ids, counts))))
+
+        return apply
+
+
+# --------------------------------------------------------------- sharded
+class _ShardLane:
+    """One shard space's service loop state: its own queues, appliers,
+    TickStats and rollback anchor."""
+
+    __slots__ = ("shard_id", "queues", "appliers", "stats", "snapshot",
+                 "ticks_since_snapshot")
+
+    def __init__(self, shard_id: str):
+        self.shard_id = shard_id
+        self.queues: Dict[str, deque] = {}  # job -> (piece, count, fut, ep)
+        self.appliers: Dict[Tuple[str, ...], Callable] = {}
+        self.stats = TickStats()
+        self.snapshot = None  # clone of this shard's state (rollback anchor)
+        self.ticks_since_snapshot = 0
+
+
+class ShardedTickEngine:
+    """Per-shard batched executor for one :class:`ShardedServiceRuntime`.
+
+    Created via :meth:`ShardedServiceRuntime.attach_engine`.  One
+    independent loop runs per shard space (``tick_shard``): a hot shard
+    ticking never stalls a cold one, and the autoscaler reads each lane's
+    :class:`TickStats` as its load signal.  A job's push splits into one
+    packed PIECE per hosting shard, each tagged with the job's global
+    step count at submit time; Adam is elementwise and each lane applies
+    a job's pieces in order, so the trajectory is bit for bit the
+    unsharded engine's however shard cadences interleave.  Staleness and
+    capacity bounds are per job, over its hosting lanes.
+
+    ``fleet_tick`` selects how :meth:`tick` runs a round: ``"fused"`` (the
+    default) is :meth:`tick_fleet`, ONE launch of K1 over every lane with
+    pending pieces; ``"per_shard"`` ticks each lane with its own launches,
+    the bit-parity oracle.  The attribute may be flipped on a live
+    engine; the two paths keep separate applier caches.
+
+    Replans follow the flat engine's protocol: the runtime drains only
+    the jobs the sharded transition touches, untouched jobs' pieces are
+    re-tagged across the epoch fence, and lanes are keyed by the stable
+    ``agg_id``.  Not ported yet: lane rollback and quarantine, the fleet
+    tick's fall-back to per-shard replay and fault injection (item 8; an
+    apply failure propagates as its exception), sharded versioned pulls
+    (item 7b) and leases (item 9).
+    """
+
+    MAX_APPLIERS = 32  # appliers per lane (one per pending-job subset)
+
+    def __init__(self, runtime, *, max_staleness: int = 1,
+                 queue_capacity: Optional[int] = None,
+                 min_batch_jobs: int = 3, fleet_tick: str = "fused",
+                 snapshot_interval: int = 8, fault_injector=None,
+                 lease_interval: Optional[float] = None):
+        if max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+        if fleet_tick not in ("fused", "per_shard"):
+            raise ValueError(f"fleet_tick must be 'fused' or 'per_shard', "
+                             f"got {fleet_tick!r}")
+        if snapshot_interval < 0:
+            raise ValueError(
+                f"snapshot_interval must be >= 0 (0 disables rollback "
+                f"anchors), got {snapshot_interval}")
+        if fault_injector is not None:
+            raise _not_in_slice("fault injection on the sharded engine", "8")
+        if lease_interval is not None:
+            raise _not_in_slice("leases (lease_interval)", "9")
+        self.runtime = runtime
+        self.max_staleness = int(max_staleness)
+        self.queue_capacity = (self.max_staleness + 1 if queue_capacity is None
+                               else int(queue_capacity))
+        if self.queue_capacity < 1:
+            raise ValueError("queue_capacity must be >= 1")
+        self.min_batch_jobs = int(min_batch_jobs)
+        self.fleet_tick = fleet_tick
+        # Per-lane rollback anchors, cloned every this many of the lane's
+        # own applying ticks (the restore that uses them is item 8).
+        self.snapshot_interval = int(snapshot_interval)
+        self.stats = TickStats()  # fleet-aggregate counters
+        self._epoch = 0
+        self._lanes: Dict[str, _ShardLane] = {}
+        self._counts: Dict[str, int] = {}  # job step mirror (submit time)
+        # Fleet appliers are keyed by the whole pending pattern
+        # ((shard_id, jobs), ...), apart from the per-lane caches.
+        self._fleet_appliers: Dict[Tuple, Callable] = {}
+        self._rows: Dict[str, Tuple] = {}  # job -> per-shard rows on device
+
+    # ------------------------------------------------------------- plumbing
+    @property
+    def plan(self):
+        return self.runtime.splan
+
+    def _lane(self, shard_id: str) -> _ShardLane:
+        lane = self._lanes.get(shard_id)
+        if lane is None:
+            lane = self._lanes[shard_id] = _ShardLane(shard_id)
+        return lane
+
+    def _layout(self, job_id: str):
+        if job_id not in self.runtime._jobs:
+            raise ValueError(f"unknown job {job_id!r}: not registered with "
+                             f"the runtime (have {sorted(self.runtime._jobs)})")
+        if job_id not in self._counts:
+            self._counts[job_id] = int(self.runtime.counts[job_id])
+        return self.plan.job_layout(job_id)
+
+    def _job_rows(self, job_id: str, layout) -> Tuple:
+        rows = self._rows.get(job_id)
+        if rows is None:
+            rows = self._rows[job_id] = _layout_rows(layout,
+                                                     self.runtime.device)
+        return rows
+
+    def expire_leases(self):
+        raise _not_in_slice("leases (expire_leases)", "9")
+
+    def outstanding(self, job_id: str) -> int:
+        """Deepest per-shard queue of the job's not-yet-applied pieces."""
+        return max((len(lane.queues.get(job_id, ()))
+                    for lane in self._lanes.values()), default=0)
+
+    def shard_stats(self) -> Dict[str, TickStats]:
+        """Per-shard TickStats (the autoscaler's load signal)."""
+        return {sid: lane.stats for sid, lane in self._lanes.items()}
+
+    def shard_health(self) -> Dict[str, str]:
+        """Per-lane health; every lane is healthy until quarantine is
+        ported (item 8)."""
+        return {sid: HEALTHY for sid in self._lanes}
+
+    def quarantined_shards(self) -> Tuple[str, ...]:
+        return ()
+
+    def _has_pending(self, only=None) -> bool:
+        return any(q and (only is None or j in only)
+                   for lane in self._lanes.values()
+                   for j, q in lane.queues.items())
+
+    def _stall_error(self, job_id: str) -> Optional[Exception]:
+        if any(lane.queues.get(job_id) for lane in self._lanes.values()):
+            return None
+        return RuntimeError(
+            f"push for job {job_id!r} can never resolve: no queued piece "
+            f"remains for it on any lane")
+
+    def _force_staleness(self, job_id: str) -> None:
+        while self.outstanding(job_id) > self.max_staleness:
+            self.stats.n_forced_staleness += 1
+            self.tick()
+
+    # ------------------------------------------------------------ data path
+    def pull(self, job_id: str, since_version=None):
+        """The job's parameters gathered across its hosting shards (a tree
+        of copies), after forcing tick rounds down to the staleness
+        bound."""
+        if since_version is not None:
+            raise _not_in_slice(
+                "sharded versioned pulls (pull(job, since_version=...))",
+                "7b")
+        layout = self._layout(job_id)
+        self._force_staleness(job_id)
+        self.stats.n_full_pulls += 1
+        self.stats.pull_bytes_wire += 4 * layout.packed_len
+        self.stats.pull_bytes_full += 4 * layout.packed_len
+        return self._params(job_id, layout)
+
+    def _params(self, job_id: str, layout):
+        """The job's parameter tree, gathered from its hosting shards into
+        a new packed vector (never a view of the arena)."""
+        packed = _gather_packed(layout, self._job_rows(job_id, layout),
+                                [self.runtime.states[sid]["flat"]
+                                 for sid in layout.shard_ids])
+        return _unpack_slots(layout, packed,
+                             self.runtime._jobs[job_id]["abstract"])
+
+    def _enqueue(self, job_id: str, layout, pieces) -> PushFuture:
+        count = self._counts[job_id] + 1
+        self._counts[job_id] = count
+        fut = PushFuture(job_id, self, parts=len(pieces))
+        for sid, piece in zip(layout.shard_ids, pieces):
+            # Wire accounting per piece, on the fleet and the lane alike.
+            n = int(piece.numel())
+            lane = self._lane(sid)
+            for st in (self.stats, lane.stats):
+                st.push_bytes_raw += 4 * n
+                st.push_bytes_wire += 4 * n
+            lane.queues.setdefault(job_id, deque()).append(
+                (piece, count, fut, self._epoch))
+        return fut
+
+    def _force_capacity(self, job_id: str, layout) -> None:
+        while True:
+            full = [sid for sid in layout.shard_ids
+                    if len(self._lane(sid).queues.get(job_id, ()))
+                    >= self.queue_capacity]
+            if not full:
+                return
+            self.stats.n_forced_capacity += 1
+            for sid in full:
+                self.tick_shard(sid)
+
+    def submit_push(self, job_id: str, grads) -> PushFuture:
+        """Queue a job's gradient tree: one packed piece per hosting
+        shard, applied by each shard's own ticks."""
+        layout = self._layout(job_id)
+        self._force_capacity(job_id, layout)
+        packed = _pack_slots(layout, grads).to(self.runtime.device)
+        return self._enqueue(job_id, layout, _split_pieces(layout, packed))
+
+    def submit_packed(self, job_id: str, packed: torch.Tensor) -> PushFuture:
+        """Queue an ALREADY-PACKED float32 gradient over the job's
+        combined packed layout (its hosting shards' pieces in shard
+        order)."""
+        layout = self._layout(job_id)
+        if tuple(packed.shape) != (layout.packed_len,):
+            raise ValueError(f"packed gradient of {job_id!r} must be "
+                             f"({layout.packed_len},), got "
+                             f"{tuple(packed.shape)}")
+        self._force_capacity(job_id, layout)
+        return self._enqueue(job_id, layout, _split_pieces(layout, packed))
+
+    def step(self, job_id: str, batch) -> Dict[str, Any]:
+        """One engine-mode iteration: staleness-bounded pull, loss and
+        gradients, one queued piece per hosting shard."""
+        layout = self._layout(job_id)
+        self._force_staleness(job_id)
+        self._force_capacity(job_id, layout)
+        loss_fn = self.runtime._jobs[job_id]["loss_fn"]
+        grads, loss = torch.func.grad_and_value(loss_fn)(
+            self._params(job_id, layout), batch)
+        g = _pack_slots(layout, grads)
+        return {"loss": loss,
+                "future": self._enqueue(job_id, layout,
+                                        _split_pieces(layout, g))}
+
+    # ----------------------------------------------------------------- tick
+    def _check_fence(self, sid: str, lane: _ShardLane, jobs) -> None:
+        for j in jobs:
+            if lane.queues[j][0][3] != self._epoch:
+                raise RuntimeError(
+                    f"epoch fence: job {j!r} queued a piece on shard "
+                    f"{sid!r} under plan epoch {lane.queues[j][0][3]} but "
+                    f"the engine is at {self._epoch}; a replan migrated "
+                    f"this job's layout without draining it")
+
+    def _commit(self, lane: _ShardLane, jobs, heads) -> None:
+        """Resolve the applied pieces' futures; a push that applied on its
+        LAST hosting shard commits the job's global step count."""
+        for j, (_, count, fut, _) in zip(jobs, heads):
+            if fut is not None and fut._resolve(count):
+                self.runtime.counts[j] = count
+        lane.stats.n_ticks += 1
+        lane.stats.n_applied += len(jobs)
+        lane.ticks_since_snapshot += 1
+
+    def tick_shard(self, shard_id: str, only=None) -> int:
+        """One tick of ONE shard space: pop the head piece of every
+        pending job on this lane and apply them with the lane's own
+        launches (one, at or above ``min_batch_jobs`` pending jobs; one
+        per job below).  Other shards are untouched."""
+        lane = self._lanes.get(shard_id)
+        if lane is None:
+            return 0
+        pending = [j for j in self.runtime._jobs
+                   if lane.queues.get(j) and (only is None or j in only)]
+        if not pending:
+            return 0
+        self._check_fence(shard_id, lane, pending)
+        if 1 < len(pending) < self.min_batch_jobs:
+            groups = [(j,) for j in pending]
+            lane.stats.n_per_job_dispatch += 1
+        else:
+            groups = [tuple(pending)]
+        self._maybe_snapshot_lane(lane)
+        heads_all = []
+        for key in groups:
+            heads = [lane.queues[j].popleft() for j in key]
+            try:
+                applier = lane.appliers.get(key)
+                if applier is None:
+                    applier = self._build_applier(shard_id, key)
+                    if len(lane.appliers) >= self.MAX_APPLIERS:
+                        lane.appliers.pop(next(iter(lane.appliers)))
+                    lane.appliers[key] = applier
+                applier(self.runtime.states[shard_id],
+                        tuple(h[0] for h in heads),
+                        tuple(h[1] for h in heads))
+            except BaseException:
+                # Re-queue and surface the error: rolling the lane back
+                # to its snapshot and replaying is item 8.
+                for j, head in zip(key, heads):
+                    lane.queues[j].appendleft(head)
+                raise
+            heads_all.extend(heads)
+        self._commit(lane, pending, heads_all)
+        lane.stats.n_launches += len(groups)
+        self.stats.n_ticks += 1
+        self.stats.n_applied += len(pending)
+        self.stats.n_launches += len(groups)
+        return len(pending)
+
+    def _maybe_snapshot_lane(self, lane: _ShardLane) -> None:
+        """Refresh the lane's rollback anchor, a CLONE of its state (the
+        appliers write the arena in place), every ``snapshot_interval``
+        of its applying ticks, before the apply."""
+        if self.snapshot_interval <= 0:
+            return
+        if (lane.snapshot is None
+                or lane.ticks_since_snapshot >= self.snapshot_interval):
+            lane.snapshot = None  # free the old clone before taking one
+            lane.snapshot = _copy_state(self.runtime.states[lane.shard_id])
+            lane.ticks_since_snapshot = 0
+            lane.stats.n_snapshots += 1
+            self.stats.n_snapshots += 1
+
+    def tick(self, only=None) -> int:
+        """One ROUND over the fleet: :meth:`tick_fleet` (one launch) with
+        ``fleet_tick="fused"``, every lane's :meth:`tick_shard` with
+        ``"per_shard"``.  Returns pieces applied (0: nothing pending)."""
+        plan = self.plan
+        if plan is None:
+            return 0
+        if self.fleet_tick == "fused":
+            return self.tick_fleet(only=only)
+        return sum(self.tick_shard(sid, only=only)
+                   for sid in plan.shard_ids)
+
+    def tick_fleet(self, only=None) -> int:
+        """One FLEET tick: pop the head piece of every pending job on
+        every lane and apply all of them in ONE launch of K1 over the
+        fleet arena, each entry's block table rebased by its shard's
+        offset.  Lanes with nothing pending are skipped: they are not in
+        the table and their stats do not move.  Returns pieces applied."""
+        plan = self.plan
+        if plan is None:
+            return 0
+        entries = []
+        for sid in plan.shard_ids:
+            lane = self._lanes.get(sid)
+            if lane is None:
+                continue
+            pending = tuple(
+                j for j in self.runtime._jobs
+                if lane.queues.get(j) and (only is None or j in only))
+            if pending:
+                self._check_fence(sid, lane, pending)
+                entries.append((sid, pending))
+        if not entries:
+            return 0
+        key = tuple(entries)
+        # Build before popping: a build failure leaves every queue whole.
+        applier = self._fleet_appliers.get(key)
+        if applier is None:
+            applier = self._build_fleet_applier(key)
+            if len(self._fleet_appliers) >= self.MAX_APPLIERS:
+                self._fleet_appliers.pop(next(iter(self._fleet_appliers)))
+            self._fleet_appliers[key] = applier
+        for sid, _ in key:
+            self._maybe_snapshot_lane(self._lanes[sid])
+        popped = [(sid, jobs, [self._lanes[sid].queues[j].popleft()
+                               for j in jobs]) for sid, jobs in key]
+        heads = [h for _, _, hs in popped for h in hs]
+        try:
+            applier(self.runtime.arena, tuple(h[0] for h in heads),
+                    tuple(h[1] for h in heads))
+        except BaseException:
+            for sid, jobs, hs in popped:
+                for j, head in zip(jobs, hs):
+                    self._lanes[sid].queues[j].appendleft(head)
+            raise
+        for sid, jobs, hs in popped:
+            self._commit(self._lanes[sid], jobs, hs)
+        self.stats.n_ticks += 1
+        self.stats.n_applied += len(heads)
+        self.stats.n_launches += 1  # ONE launch for the whole fleet
+        return len(heads)
+
+    def drain(self, only=None) -> int:
+        """Tick rounds until every (selected) queue on every lane is
+        empty.  Returns pieces applied."""
+        applied = 0
+        while True:
+            n = self.tick(only=only)
+            if n == 0:
+                return applied
+            applied += n
+
+    def quiesce_for_replan(self, touched) -> int:
+        """Drain ONLY the touched jobs' pieces (on every lane) ahead of a
+        sharded migration; untouched jobs keep their queues."""
+        applied = 0
+        while True:
+            pending = [j for j in touched
+                       if any(lane.queues.get(j)
+                              for lane in self._lanes.values())]
+            if not pending:
+                return applied
+            self.stats.n_forced_replan += 1
+            applied += self.tick(only=pending)
+
+    # --------------------------------------------------------------- replan
+    def _on_plan_change(self, touched=None) -> None:
+        """A sharded replan landed.  Every fleet applier goes (each bakes
+        every shard's arena offset, and any shard joining or leaving moves
+        the later ones), and so does every lane snapshot (it holds the old
+        geometry).  ``touched=None`` requires every queue empty and drops
+        everything; with a touched set only the touched jobs' appliers
+        and rows go, lanes whose Aggregator left are dropped, and
+        untouched jobs' queued pieces are re-tagged to the new epoch."""
+        self._epoch += 1
+        self.stats.n_replans += 1
+        self._fleet_appliers.clear()
+        for lane in self._lanes.values():
+            lane.snapshot = None
+            lane.ticks_since_snapshot = 0
+        if touched is None:
+            if self._has_pending():
+                raise RuntimeError("replan with queued pieces: the runtime "
+                                   "must drain the engine first")
+            self._lanes.clear()
+            self._rows.clear()
+            return
+        touched = set(touched)
+        live = set(self.plan.shard_ids) if self.plan is not None else set()
+        for sid in list(self._lanes):
+            lane = self._lanes[sid]
+            for j in touched:
+                if lane.queues.get(j):
+                    raise RuntimeError(
+                        f"replan with queued pieces for TOUCHED job {j!r} "
+                        f"on shard {sid!r}: quiesce_for_replan must drain "
+                        f"it first")
+            if sid not in live:
+                if any(lane.queues.values()):
+                    raise RuntimeError(f"shard {sid!r} left the fleet with "
+                                       f"queued pieces")
+                del self._lanes[sid]
+                continue
+            for j, q in lane.queues.items():
+                if q:  # untouched by construction: carry across the fence
+                    self.stats.n_retagged += len(q)
+                    lane.queues[j] = deque(
+                        (piece, count, fut, self._epoch)
+                        for piece, count, fut, _ in q)
+            for j in touched:
+                lane.queues.pop(j, None)
+            lane.appliers = {k: v for k, v in lane.appliers.items()
+                             if not touched.intersection(k)}
+        for j in touched:
+            self._rows.pop(j, None)
+
+    def _forget_job(self, job_id: str) -> None:
+        for lane in self._lanes.values():
+            q = lane.queues.pop(job_id, None)
+            if q:
+                for _, _, fut, _ in q:
+                    if fut is not None:
+                        fut._cancel("job removed from the runtime with this "
+                                    "piece still queued (drain was "
+                                    "bypassed)")
+            lane.appliers = {k: v for k, v in lane.appliers.items()
+                             if job_id not in k}
+        self._fleet_appliers = {
+            k: v for k, v in self._fleet_appliers.items()
+            if not any(job_id in jobs for _, jobs in k)}
+        self._counts.pop(job_id, None)
+        self._rows.pop(job_id, None)
+
+    # -------------------------------------------------------------- applier
+    def _build_applier(self, shard_id: str, job_ids: Tuple[str, ...]):
+        """The batched apply for one shard space and one pending-job
+        combination: ONE launch of K1 over the shard's views of the arena,
+        written in place.  The per-job step counts arrive with the queued
+        pieces (fixed at submit time), so the order in which shards tick
+        cannot skew the bias correction."""
+        shard_plan = self.plan.shard_of(shard_id)
+        block_idx, job_sizes, hps = _fused_tables(
+            [shard_plan.job_layout(j) for j in job_ids],
+            [self.runtime._jobs[j] for j in job_ids], _sharded_job_hp)
+        block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
+                                                 self.runtime.device)
+        block = shard_plan.block_align
+
+        def apply(state, gs, counts):
+            _fused_state_update(state, gs, counts, block=block,
+                                block_idx=block_idx_t, job_slot=job_slot_t,
+                                job_sizes=job_sizes, hps=hps)
+
+        return apply
+
+    def _build_fleet_applier(self, key) -> Callable:
+        """The SINGLE-LAUNCH fleet apply for one pending pattern ``key``
+        (``((shard_id, (job, ...)), ...)``, plan order): one K1 launch
+        over the whole fleet arena, each entry's block table rebased by
+        its shard's arena offset in blocks.  The offsets are
+        block-aligned, so block exclusivity holds across the arena and
+        the launch is bit for bit the per-shard oracle's."""
+        plan = self.plan
+        _, _, block = plan.concat_view([sid for sid, _ in key])
+        arena_off = dict(zip(plan.shard_ids, plan.concat_view()[0]))
+        layouts, infos, bases = [], [], []
+        for sid, jobs in key:
+            shard_plan = plan.shard_of(sid)
+            for j in jobs:
+                layouts.append(shard_plan.job_layout(j))
+                infos.append(self.runtime._jobs[j])
+                bases.append(arena_off[sid] // block)
+        block_idx, job_sizes, hps = _fused_tables(
+            layouts, infos, _sharded_job_hp, base_blocks=bases)
+        block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
+                                                 self.runtime.device)
+
+        def apply(arena, gs, counts):
+            _fused_state_update(arena, gs, counts, block=block,
+                                block_idx=block_idx_t, job_slot=job_slot_t,
+                                job_sizes=job_sizes, hps=hps)
 
         return apply

@@ -30,8 +30,9 @@ a clone: the rollback anchor's (which the engine never writes: a
 rollback installs a clone of it) or one taken at publish time.  Every
 served payload is a new tensor.
 
-The flat engine is one unnamed lane.  Sharded lanes (``ShardedTickEngine``)
-are not ported yet (ROADMAP.md, Queue 1 item 7).
+The flat engine is one unnamed lane.  The read tier over the sharded
+engine's lanes (``ShardedTickEngine``) is not ported yet (ROADMAP.md,
+Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -375,7 +376,7 @@ class ReplicaSet:
                 f"max_staleness_ticks must be >= 0 (None disables the "
                 f"bound), got {max_staleness_ticks}")
         if hasattr(engine, "_lanes"):
-            raise _not_in_slice("the read tier over sharded lanes", "7")
+            raise _not_in_slice("the read tier over sharded lanes", "7b")
         if getattr(engine, "_replica_hub", None) is not None:
             raise ValueError("engine already has a ReplicaSet attached")
         self.engine = engine

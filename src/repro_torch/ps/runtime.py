@@ -214,6 +214,39 @@ def _scatter_owned(layout, vec: torch.Tensor, packed) -> torch.Tensor:
     return vec
 
 
+def _layout_rows(layout, device) -> Tuple[Optional[torch.Tensor], ...]:
+    """Per-hosting-shard owned-block row indices of a ShardedJobLayout on
+    ``device`` (None where the shard gather is the identity), uploaded
+    once for a caller to keep."""
+    return tuple(None if l.covers_all else _rows(l, device)
+                 for l in layout.layouts)
+
+
+def _gather_pieces(layout, rows, flats) -> List[torch.Tensor]:
+    """One block-row gather per hosting shard of a ShardedJobLayout
+    (``rows`` from :func:`_layout_rows`): the job's per-shard packed
+    pieces, in shard order, each a NEW tensor (a clone where the job owns
+    the whole shard), never a view of live state."""
+    return [flat.clone() if r is None else
+            flat.view(-1, l.block)[r].reshape(-1)
+            for l, r, flat in zip(layout.layouts, rows, flats)]
+
+
+def _gather_packed(layout, rows, flats) -> torch.Tensor:
+    """The job's COMBINED packed vector across its hosting shards."""
+    pieces = _gather_pieces(layout, rows, flats)
+    return torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+
+
+def _split_pieces(layout, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Slice a combined packed vector into per-hosting-shard pieces
+    (views of ``g``)."""
+    if layout.n_shards == 1:
+        return (g,)
+    return tuple(g[off : off + l.packed_len]
+                 for l, off in zip(layout.layouts, layout.piece_offsets))
+
+
 def _unpack_slots(layout, packed: torch.Tensor, abstract_params):
     """Packed job-local vector -> tree (views of ``packed``)."""
     by_key = {key: packed[start : start + size].reshape(shape)

@@ -15,25 +15,48 @@ With an attached :class:`~repro_torch.ps.engine.ServiceTickEngine`
 tick applies all pending jobs in one launch of the multi-job Adam kernel;
 a replan drains only the jobs whose layout it changes.
 
-The runtime runs on the card unless it is given ``device="cpu"``.
+:class:`ShardedServiceRuntime` is the sharded sibling: every live
+Aggregator owns its own shard space, a job's step touches only the shards
+hosting its blocks, the
+:class:`~repro_torch.ps.engine.ShardedTickEngine` ticks the spaces on
+independent cadences or the whole fleet in one launch, and the fleet
+grows and shrinks with load (:class:`~repro_torch.ps.autoscaler.ElasticScaler`
+through ``service.scale_out`` / ``scale_in``).  The shard spaces' states
+are views into ONE fleet arena per leaf, so the fleet tick addresses
+every shard without copying state.
+
+Both runtimes run on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.agg_adam import ops as agg_ops
 from .elastic import (
+    LEAVES,
     compile_migration_delta,
     migrate_flat_state,
     migrate_flat_state_delta,
+    migrate_sharded_state,
     migration_bytes,
     plan_cache_stats,
+    sharded_transition_summary,
 )
-from .plan import FlatPlan
+from .plan import FlatPlan, ShardedPlan
 from .runtime import (
+    _gather_packed,
+    _gather_pieces,
+    _layout_rows,
     _not_in_slice,
+    _pack_slots,
+    _scatter_owned,
+    _split_pieces,
+    _unpack_slots,
     abstract_tree,
     init_shared_state,
     job_profile_from_tree,
@@ -42,6 +65,44 @@ from .runtime import (
     tree_map,
     unflatten_tree,
 )
+
+
+def _debug_stats(rt, extra_runtime: Dict[str, Any],
+                 shards: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """debug_stats of both runtimes: the plan-pair cache, the runtime's
+    migration counters, the service's replan-transaction counters, the
+    attached engine's TickStats (None detached), the fault injector's
+    fire counts and the read tier's per-replica ReadStats (None without
+    a ReplicaSet); the sharded runtime adds per-shard ``shards``."""
+    engine = rt._engine
+    injector = getattr(engine, "fault_injector", None)
+    hub = getattr(engine, "_replica_hub", None)
+    out = {
+        "plan_cache": plan_cache_stats(),
+        "runtime": {
+            "n_jobs": len(rt._jobs),
+            "n_replans": rt.n_replans,
+            "migration_bytes_total": rt.total_migration_bytes,
+            "relayout_bytes_total": rt.total_relayout_bytes,
+            "last_replan_touched": list(rt.last_replan_touched),
+            **extra_runtime,
+        },
+        "transactions": {
+            "n_replan_commits": rt.service.n_replan_commits,
+            "n_replan_aborts": rt.service.n_replan_aborts,
+            "n_replan_retries": rt.service.n_replan_retries,
+        },
+        "engine": (dataclasses.asdict(engine.stats)
+                   if engine is not None else None),
+        "faults": (None if injector is None else {
+            "n_fired": injector.n_fired,
+            "by_kind": injector.fire_counts(),
+        }),
+        "replicas": hub.stats() if hub is not None else None,
+    }
+    if shards is not None:
+        out["shards"] = shards
+    return out
 
 
 class ServiceRuntime:
@@ -82,37 +143,10 @@ class ServiceRuntime:
         return self._engine
 
     def debug_stats(self) -> Dict[str, Any]:
-        """The plan-pair cache, this runtime's migration counters, the
-        service's replan-transaction counters, the attached engine's
-        TickStats (None detached), the fault injector's fire counts and
-        the read tier's per-replica ReadStats (None without a
-        ReplicaSet)."""
-        engine = self._engine
-        injector = engine.fault_injector if engine is not None else None
-        hub = getattr(engine, "_replica_hub", None)
-        return {
-            "plan_cache": plan_cache_stats(),
-            "runtime": {
-                "n_jobs": len(self._jobs),
-                "n_replans": self.n_replans,
-                "migration_bytes_total": self.total_migration_bytes,
-                "relayout_bytes_total": self.total_relayout_bytes,
-                "last_replan_touched": list(self.last_replan_touched),
-                "migration": self.migration,
-            },
-            "transactions": {
-                "n_replan_commits": self.service.n_replan_commits,
-                "n_replan_aborts": self.service.n_replan_aborts,
-                "n_replan_retries": self.service.n_replan_retries,
-            },
-            "engine": (dataclasses.asdict(engine.stats)
-                       if engine is not None else None),
-            "faults": (None if injector is None else {
-                "n_fired": injector.n_fired,
-                "by_kind": injector.fire_counts(),
-            }),
-            "replicas": hub.stats() if hub is not None else None,
-        }
+        """Plan-pair cache, migration and transaction counters, the
+        engine's TickStats, fault and read-tier counters
+        (:func:`_debug_stats`)."""
+        return _debug_stats(self, {"migration": self.migration})
 
     # ----------------------------------------------------------------- jobs
     def add_job(
@@ -264,6 +298,303 @@ class ServiceRuntime:
                                         if touched is not None
                                         else tuple(self._jobs))
         self.plan = new
+        if engine is not None:
+            engine._on_plan_change(touched)
+        self._steps = steps
+
+
+# --------------------------------------------------------------- sharded
+def _init_shard_state(splan: ShardedPlan, device):
+    """Zeroed state for every shard space of ``splan`` (the counterpart of
+    the reference's per-shard ``_init_shard_state``), laid out as ONE fleet
+    arena per leaf: a (fleet lanes,) float32 buffer with each shard's
+    flat/mu/nu a view at ``splan.concat_view()``'s block-aligned offset.
+    No per-job counters: the runtime owns them.  Returns (arena,
+    states)."""
+    offsets, total, _ = splan.concat_view()
+    arena = {k: torch.zeros(total, dtype=torch.float32, device=device)
+             for k in LEAVES}
+    states = {sid: {k: arena[k][off : off + sp.total_len] for k in LEAVES}
+              for sid, sp, off in zip(splan.shard_ids, splan.shards,
+                                      offsets)}
+    return arena, states
+
+
+def _make_sharded_step(model_loss, layout, abstract_params, *, lr, b1, b2,
+                       eps, device):
+    """O(job-bytes) step spanning ONLY the shards hosting the job:
+    ``(shard_states, count, batch) -> (count + 1, {"loss"})``, writing the
+    shard states in place.  The pull gathers each hosting shard's owned
+    blocks into the job's packed domain; the update runs per shard, on
+    that shard's piece with the job's GLOBAL step count, through K3 --
+    elementwise, so splitting by shard changes nothing and the trajectory
+    is the single-space block step's bit for bit."""
+    rows = _layout_rows(layout, device)
+
+    def step(shard_states, count, batch):
+        pieces = _gather_pieces(layout, rows,
+                                [st["flat"] for st in shard_states])
+        p = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+        params = _unpack_slots(layout, p, abstract_params)
+        grads, loss = torch.func.grad_and_value(model_loss)(params, batch)
+        g = _pack_slots(layout, grads)
+        new_count = count + 1
+        for l, st, pp, gj in zip(layout.layouts, shard_states, pieces,
+                                 _split_pieces(layout, g)):
+            new_p, mu, nu = agg_ops.block_adam_update(
+                pp, gj, st["mu"], st["nu"], new_count, block_idx=l.blocks,
+                block=l.block, lr=lr, b1=b1, b2=b2, eps=eps, wd=0.0,
+                p_packed=True)
+            _scatter_owned(l, st["flat"], new_p)
+            _scatter_owned(l, st["mu"], mu)
+            _scatter_owned(l, st["nu"], nu)
+        return new_count, {"loss": loss}
+
+    return step
+
+
+class ShardedServiceRuntime:
+    """Per-Aggregator shard spaces bound to one ParameterService.
+
+    Every live Aggregator owns a shard space (``states[agg_id]``, views
+    into the fleet arena ``arena``); per-job step counts live here
+    (``counts``).  A job's step touches only its hosting shards; the
+    attached :class:`~repro_torch.ps.engine.ShardedTickEngine` ticks the
+    spaces.  Replans, load-driven splits and merges included, migrate the
+    states with :func:`~repro_torch.ps.elastic.migrate_sharded_state` into
+    the next plan's arena: surviving shards run their delta through K2
+    and only segments that changed Aggregator cross shard spaces.  With
+    ONE Aggregator the shard space is the flat runtime's and the
+    trajectory reproduces it bit for bit.
+
+    Not ported yet: ``recover_shard`` (item 8), checkpoints (item 11),
+    compressed pushes (item 4).
+    """
+
+    def __init__(self, service, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.service = service
+        self.splan: Optional[ShardedPlan] = None
+        self.arena: Optional[Dict[str, torch.Tensor]] = None
+        self.states: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.counts: Dict[str, int] = {}  # job -> global step count
+        self.last_migration_bytes = 0  # cross-Aggregator (paper accounting)
+        self.total_migration_bytes = 0
+        self.last_relayout_bytes = 0  # bytes the sharded delta path moved
+        self.total_relayout_bytes = 0
+        self.last_replan_touched: tuple = ()
+        self.n_replans = 0
+        self._jobs: Dict[str, Dict[str, Any]] = {}
+        self._steps: Dict[str, Tuple[Tuple[str, ...], Callable]] = {}
+        self._engine = None
+        service.on_replan(self._on_replan)
+
+    # ------------------------------------------------------------- plumbing
+    @property
+    def n_shards(self) -> int:
+        return self.splan.n_shards if self.splan is not None else 0
+
+    @property
+    def shard_ids(self):
+        return self.splan.shard_ids if self.splan is not None else ()
+
+    @property
+    def job_ids(self):
+        return tuple(self._jobs)
+
+    @property
+    def engine(self):
+        return self._engine
+
+    def attach_engine(self, **engine_opts):
+        """Create (once) and return the per-shard tick engine."""
+        from .engine import ShardedTickEngine
+
+        if self._engine is None:
+            self._engine = ShardedTickEngine(self, **engine_opts)
+        elif engine_opts:
+            raise ValueError("engine already attached; cannot re-configure")
+        return self._engine
+
+    def debug_stats(self) -> Dict[str, Any]:
+        """:func:`_debug_stats` plus the shard count and every lane's
+        TickStats and health."""
+        eng = self._engine
+        if eng is None:
+            return _debug_stats(self, {"n_shards": self.n_shards}, shards={})
+        health = eng.shard_health()
+        return _debug_stats(
+            self, {"n_shards": self.n_shards},
+            shards={sid: {**dataclasses.asdict(st), "health": health[sid]}
+                    for sid, st in eng.shard_stats().items()})
+
+    # ----------------------------------------------------------------- jobs
+    def add_job(
+        self,
+        job_id: str,
+        params,
+        loss_fn: Callable[[Any, Any], Any],
+        *,
+        iteration_duration: float = 1.0,
+        n_workers: int = 2,
+        required_servers: int = 1,
+        agg_throughput: float = 7e9,
+        lr: float = 3e-4,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        **step_opts,
+    ) -> None:
+        """Register a job and seed its parameters into the shards the
+        control plane assigned its tensors to."""
+        if job_id in self._jobs:
+            raise ValueError(f"job {job_id} already in the runtime")
+        if step_opts.get("push_compression"):
+            raise _not_in_slice("push_compression", "4")
+        profile, specs = job_profile_from_tree(
+            job_id, params,
+            iteration_duration=iteration_duration,
+            n_workers=n_workers,
+            required_servers=required_servers,
+            agg_throughput=agg_throughput,
+        )
+        self._jobs[job_id] = dict(
+            loss_fn=loss_fn, abstract=abstract_tree(params),
+            lr=lr, b1=b1, b2=b2, eps=eps, step_opts=step_opts)
+        try:
+            self.service.register_job(profile, specs=specs)
+        except Exception:
+            self._jobs.pop(job_id, None)
+            raise
+        self._seed_job(job_id, tree_map(lambda t: t.to(self.device), params))
+
+    def remove_job(self, job_id: str) -> None:
+        """Job exit: its segments leave every hosting shard.  The job's
+        queued pushes drain against the old layout first.  Raises
+        ``ValueError`` for an unknown job, leaving the runtime as it
+        was."""
+        if job_id not in self._jobs:
+            raise ValueError(
+                f"unknown job {job_id!r}: not registered with this runtime "
+                f"(have {sorted(self._jobs)})")
+        if self._engine is not None:
+            self._engine.quiesce_for_replan([job_id])
+            self._engine._forget_job(job_id)
+        info = self._jobs.pop(job_id)
+        step = self._steps.pop(job_id, None)
+        count = self.counts.pop(job_id, None)
+        try:
+            self.service.job_exit(job_id)
+        except Exception:
+            # The exit replan aborted with the registry rolled back:
+            # restore this runtime's entries so both planes agree.
+            self._jobs[job_id] = info
+            if step is not None:
+                self._steps[job_id] = step
+            if count is not None:
+                self.counts[job_id] = count
+            raise
+
+    def _seed_job(self, job_id: str, params) -> None:
+        """Write the job's parameters into its owned blocks of every
+        hosting shard, in place, with zero moments and step count."""
+        layout = self.splan.job_layout(job_id)
+        packed = _pack_slots(layout, params).to(self.device)
+        for sid, l, piece in zip(layout.shard_ids, layout.layouts,
+                                 _split_pieces(layout, packed)):
+            st = self.states[sid]
+            _scatter_owned(l, st["flat"], piece)
+            for k in ("mu", "nu"):
+                _scatter_owned(l, st[k], torch.zeros(
+                    l.packed_len, dtype=torch.float32, device=self.device))
+        self.counts[job_id] = 0
+
+    # ------------------------------------------------------------- training
+    def step(self, job_id: str, batch):
+        """One pull -> compute -> push -> update iteration for one job,
+        touching only the shards that host its blocks."""
+        hosting, fn = self._steps[job_id]
+        self.counts[job_id], metrics = fn(
+            [self.states[sid] for sid in hosting], self.counts[job_id],
+            batch)
+        return metrics
+
+    def params_of(self, job_id: str):
+        """Current parameters of one job (copies), gathered across its
+        shards."""
+        layout = self.splan.job_layout(job_id)
+        packed = _gather_packed(
+            layout, _layout_rows(layout, self.device),
+            [self.states[sid]["flat"] for sid in layout.shard_ids])
+        return _unpack_slots(layout, packed, self._jobs[job_id]["abstract"])
+
+    def recover_shard(self, agg_id: str):
+        raise _not_in_slice("recover_shard", "8")
+
+    def save_checkpoint(self, directory, step: int, **kw):
+        raise _not_in_slice("sharded checkpoints", "11")
+
+    def restore_checkpoint(self, directory, step: int, **kw):
+        raise _not_in_slice("sharded checkpoints", "11")
+
+    # --------------------------------------------------------------- replan
+    def _on_replan(self, old_flat, new_flat):
+        engine = self._engine
+        if new_flat is None:  # last job exited
+            if engine is not None and self.states:
+                engine.drain()
+            self.splan, self.arena, self.states = None, None, {}
+            self._steps, self.counts = {}, {}
+            if engine is not None:
+                engine._on_plan_change(None)
+            return
+        new = self.service.compile_sharded_plan()
+        old = self.splan
+        # Everything up to the COMMIT below is computed into locals, and
+        # the migration only reads the old states, so a failure leaves
+        # splan/arena/states/steps on the old layout for the service's
+        # transaction to roll back against.
+        touched = None  # None: every job's layout may have changed
+        moved_elems = 0
+        migrated = old is not None and bool(self.states)
+        arena, fresh = _init_shard_state(new, self.device)
+        if migrated:
+            _, touched_pre = sharded_transition_summary(old, new)
+            if engine is not None:
+                engine.quiesce_for_replan(
+                    [j for j in touched_pre if j in self._jobs])
+            states, moved_elems, touched_exec = migrate_sharded_state(
+                self.states, old, new, out=fresh)
+            touched = set(touched_exec)
+        else:
+            if engine is not None and self.states:
+                engine.drain()
+            states = fresh
+        steps: Dict[str, Tuple[Tuple[str, ...], Callable]] = {}
+        for job_id, info in self._jobs.items():
+            # An untouched job's layout is the same on every hosting
+            # shard: keep its step.
+            if (touched is not None and job_id not in touched
+                    and job_id in self._steps):
+                steps[job_id] = self._steps[job_id]
+                continue
+            layout = new.job_layout(job_id)
+            steps[job_id] = (layout.shard_ids, _make_sharded_step(
+                info["loss_fn"], layout, info["abstract"], lr=info["lr"],
+                b1=info["b1"], b2=info["b2"], eps=info["eps"],
+                device=self.device))
+        # ---- COMMIT: the new layout becomes visible as a unit ----
+        self.arena, self.states = arena, states
+        if migrated:
+            self.last_relayout_bytes = moved_elems * 12
+            self.total_relayout_bytes += self.last_relayout_bytes
+            self.last_replan_touched = tuple(sorted(touched))
+            self.n_replans += 1
+            if old_flat is not None:
+                moved = migration_bytes(old_flat, new_flat)
+                self.last_migration_bytes = moved
+                self.total_migration_bytes += moved
+        self.splan = new
         if engine is not None:
             engine._on_plan_change(touched)
         self._steps = steps
