@@ -29,8 +29,32 @@ the paper workloads' full tensor inventories:
      packed flat/mu/nu read through its layout before and after, bit for
      bit) and the runtime's moved bytes and touched jobs against
      ``sharded_transition_summary``.  The phase must stay within 65 GB at
-     peak and leave at most 256 MiB allocated behind it; its times are
-     printed, never checked;
+     peak; its times are printed, never checked;
+  r. on phase s's runtime, its read side and fault tolerance (the engine
+     carries a seeded FaultInjector with no rule armed before this
+     phase): r1, a ReplicaSet of 2 pull-only replicas over the shard
+     lanes and 3 fused fleet ticks, the second of one job's push only,
+     after which a versioned diff pull of every job, from the engine and
+     from a replica, must ship exactly that job's blocks and, patched
+     onto the bootstrap pull, equal a full pull bit for bit, and the
+     replica's tree pulls must equal the engine's after a refresh; r2, a
+     ``fail_apply`` on the lane hosting the most jobs in the second of 3
+     rounds: the fused tick falls back (one fall-back, the lanes roll
+     back and replay, no replan), and the drained arena must equal bit
+     for bit a clone of it taken before r2 driven through the same
+     pieces by the per-shard appliers, every lane still a view of the
+     arena; r3, a ``kill_shard`` on a lane hosting some jobs but not
+     all: it quarantines after its retry, an ElasticScaler holds, the
+     other jobs tick on at one launch a fused tick, direct pulls of its
+     jobs raise while a replica serves them degraded and
+     deterministically, and ``recover_shard`` (from the lane's snapshot,
+     its rolled-back and cancelled pushes counted as the dead lane's
+     queue says) re-hosts it, held against the gather oracle and the
+     summary (the relayout kernels wherever a surviving shard's delta
+     moves blocks); then 2 fused ticks of every job and the read tier
+     re-subscribed across the epoch.  The phase must stay within 45 GB at
+     peak, and phases s and r together leave at most 256 MiB allocated;
+     times are printed, never checked;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
      with the block kernel;
@@ -90,7 +114,7 @@ and the recsys family at its published widths (seeded random weights):
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
-against the full-gather oracle (phase s: the gather oracle above); the
+against the full-gather oracle (phases s and r: the gather oracle above); the
 last tick of each of phases a-c against the plain multi-job update; one
 block step of phase d against the plain masked step; one fused step of
 phase e against the unfused optimizer's step; the first step of phase f
@@ -286,6 +310,11 @@ def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_allocs(device) -> int:
+    """``cudaMalloc`` calls the caching allocator has made so far."""
+    return torch.cuda.memory_stats(device).get("num_device_alloc", 0)
+
+
 def host_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
@@ -345,9 +374,15 @@ class Service:
         self.svc = ParameterService(total_budget=16, n_clusters=1,
                                     plan_pad_to=128)
         if sharded:
+            from repro_torch.ps.faults import FaultInjector
+
+            # Phase r arms its faults on this injector; none is armed
+            # before it, so phase s runs as it would without one.
+            self.inj = FaultInjector(seed=0)
             self.rt = ShardedServiceRuntime(self.svc, device=device)
             self.eng = self.rt.attach_engine(max_staleness=1,
-                                             fleet_tick="fused")
+                                             fleet_tick="fused",
+                                             fault_injector=self.inj)
         else:
             self.rt = ServiceRuntime(self.svc, device=device)
             self.eng = self.rt.attach_engine(max_staleness=1)
@@ -385,9 +420,10 @@ class Service:
         return torch.randn(mask.numel(), generator=self.gen,
                            device=self.device) * 1e-3 * mask
 
-    def push_all(self):
-        """One seeded packed gradient per resident job; returns them."""
-        gs = {j: self.grad(j) for j in self.rt.job_ids}
+    def push_all(self, jobs=None):
+        """One seeded packed gradient per resident job (or per job of
+        ``jobs``); returns them."""
+        gs = {j: self.grad(j) for j in (jobs or self.rt.job_ids)}
         for j, g in gs.items():
             self.eng.submit_packed(j, g)
         return gs
@@ -724,7 +760,7 @@ def k2_entries(before, delta, device):
 
 # ------------------------------------------- phase s: the sharded service
 S_PEAK_GB = 65.0  # phase s's budget of device memory at peak
-S_LEAK_BYTES = 256 << 20  # what phase s may leave allocated behind it
+S_LEAK_BYTES = 256 << 20  # what phases s and r may leave allocated
 
 
 def gather_jobs(s: Service, jobs):
@@ -750,16 +786,17 @@ def gather_jobs(s: Service, jobs):
     return out
 
 
-def fleet_heads(s: Service):
-    """The head piece of every pending job on every lane, per lane:
-    [(shard id, jobs, pieces, counts)] (what the next fleet tick applies)."""
+def fleet_heads(s: Service, at: int = 0):
+    """The head piece (``at=-1``: the last queued) of every pending job on
+    every lane, per lane: [(shard id, jobs, pieces, counts)], what the
+    next fleet tick applies (the pieces the last push queued)."""
     heads = []
     for sid in s.plan.shard_ids:
         lane = s.eng._lanes.get(sid)
         jobs = tuple(j for j in s.rt.job_ids
                      if lane is not None and lane.queues.get(j))
         if jobs:
-            hs = [lane.queues[j][0] for j in jobs]
+            hs = [lane.queues[j][at] for j in jobs]
             heads.append((sid, jobs, tuple(h[0] for h in hs),
                           tuple(h[1] for h in hs)))
     return heads
@@ -785,9 +822,10 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
     ``oracle_last`` the last tick is held against the per-shard oracle on
     a clone of the arena, bit for bit.  Returns (tick ms, the host's share
     of each: ms until ``tick()`` returns, before the synchronize; the
-    oracle's K1 launches)."""
+    caching allocator's new device allocations (``cudaMalloc``s) in each;
+    the oracle's K1 launches)."""
     k1 = wrappers["agg_adam_multijob_fused"]
-    times, enqueue, oracle = [], [], 0
+    times, enqueue, mallocs, oracle = [], [], [], 0
     for i in range(n):
         s.push_all()
         pieces = sum(len(s.plan.job_layout(j).shard_ids)
@@ -798,11 +836,13 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
             heads = fleet_heads(s)
         sync(s.device)
         launches0, k1_0 = s.eng.stats.n_launches, k1.launches
+        allocs0 = device_allocs(s.device)
         t0 = time.perf_counter()
         applied = s.eng.tick()
         enqueue.append((time.perf_counter() - t0) * 1e3)
         sync(s.device)
         times.append((time.perf_counter() - t0) * 1e3)
+        mallocs.append(device_allocs(s.device) - allocs0)
         if (s.eng.stats.n_launches - launches0, k1.launches - k1_0) != (1, 1):
             raise AssertionError(
                 f"phase s: a fleet tick made {k1.launches - k1_0} K1 "
@@ -822,18 +862,20 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
                         f"oracle differ in {k} (max abs "
                         f"{max_abs(v, s.rt.arena[k])})")
             del clone, heads
-    return times, enqueue, oracle
+    return times, enqueue, mallocs, oracle
 
 
-def sharded_transition(s: Service, what: str, fn, wrappers):
-    """Drain, read every resident job's packed state through its layout,
-    run the replan ``fn``, then hold the migrated states against those
-    reads bit for bit and the runtime's moved bytes and touched jobs
-    against ``sharded_transition_summary``.  Returns (fn's result,
-    replan s, K2 launches (stage, scatter), the summary)."""
+def sharded_transition(s: Service, what: str, fn, wrappers, drain=True):
+    """Drain (unless the caller has), read every resident job's packed
+    state through its layout, run the replan ``fn``, then hold the
+    migrated states against those reads bit for bit and the runtime's
+    moved bytes and touched jobs against ``sharded_transition_summary``.
+    Returns (fn's result, replan s, K2 launches (stage, scatter), the
+    summary)."""
     from repro_torch.ps.elastic import sharded_transition_summary
 
-    s.eng.drain()
+    if drain:
+        s.eng.drain()
     jobs = s.rt.job_ids
     before = gather_jobs(s, jobs)
     old = s.plan
@@ -888,7 +930,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
     idle windows grows the fleet by one shard and merges it back.  Every
     transition is held against the gather oracle and the summary's
     accounting.  Returns the phase's launch counts (the oracle's K1
-    launches taken out) and its peak GB."""
+    launches taken out) and the service, which phase r goes on with."""
     from repro_torch.ps import elastic
     from repro_torch.ps.autoscaler import AutoscalerConfig, ElasticScaler
 
@@ -919,11 +961,13 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
           flush=True)
 
     stats0 = step_start()
-    times, enqueue, n = fleet_ticks(s, 4, wrappers, oracle_last=True)
+    times, enqueue, mallocs, n = fleet_ticks(s, 4, wrappers,
+                                             oracle_last=True)
     oracle += n
     print(s_line("1 (3 jobs)", times, stats0, s.eng.stats, None, peak(),
                  f" fused_vs_per_shard=bit_for_bit per_shard_k1_launches={n}"
                  f" host_enqueue_ms={[round(t, 3) for t in enqueue]}"
+                 f" cuda_mallocs={mallocs}"
                  f" flat_tick_ms_median(phase a)="
                  f"{statistics.median(flat_tick_ms):.3f}"), flush=True)
 
@@ -932,7 +976,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
         s, "arrival", lambda: s.add("awd-lm"), wrappers)
     if min(k2) < 1:
         raise AssertionError(f"phase s arrival: K2 launches {k2}")
-    times, _, _ = fleet_ticks(s, 2, wrappers)
+    times, _, _, _ = fleet_ticks(s, 2, wrappers)
     print(s_line("2 (AWD-LM arrives)", times, stats0, s.eng.stats, replan_s,
                  peak(), f" shards={s.rt.n_shards} moved_elements={moved} "
                  f"touched={list(touched)} k2_launches(stage+scatter)="
@@ -951,7 +995,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
     for name, rounds, want in (("idle", 2, "hold"), ("hot", hot, "grow"),
                                ("idle", 2, "shrink")):
         stats0 = step_start()
-        times, _, _ = fleet_ticks(s, rounds, wrappers)
+        times, _, _, _ = fleet_ticks(s, rounds, wrappers)
         d, replan_s, k2, summary = sharded_transition(
             s, f"{name} window", scaler.observe, wrappers)
         if d.action != want:
@@ -970,7 +1014,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
               flush=True)
         elastic.clear_plan_cache()
     stats0 = step_start()
-    times, _, _ = fleet_ticks(s, 2, wrappers)
+    times, _, _, _ = fleet_ticks(s, 2, wrappers)
     print(s_line(f"{len(peaks)} (after the merge)", times, stats0,
                  s.eng.stats, None, peak(), f" shards={s.rt.n_shards}"),
           flush=True)
@@ -982,7 +1026,313 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
     print(f"phase s (sharded service): counters={counts} peak_gb="
           f"{max(peaks):.2f} engine={dataclasses.asdict(s.eng.stats)} "
           f"seconds={time.perf_counter() - t_phase:.1f}", flush=True)
-    del s, scaler
+    del scaler
+    elastic.clear_plan_cache()
+    return counts, s
+
+
+# --------------------------------- phase r: read side and fault tolerance
+R_PEAK_GB = 45.0  # phase r's budget of device memory at peak
+R_FAULT_ROUNDS = 3  # r2's push rounds; the fault fires in the second
+
+
+def r_tick(s: Service, wrappers, what: str):
+    """One engine round (``tick()``), timed on the host clock to a
+    synchronize.  A fused tick that does not fall back must be exactly one
+    K1 launch and one ``n_launches``.  Returns (pieces applied, ms, the
+    caching allocator's ``cudaMalloc``s in it)."""
+    k1 = wrappers["agg_adam_multijob_fused"]
+    fallbacks, launches, k1_0 = (s.eng.stats.n_fleet_fallbacks,
+                                 s.eng.stats.n_launches, k1.launches)
+    sync(s.device)
+    allocs0 = device_allocs(s.device)
+    t0 = time.perf_counter()
+    applied = s.eng.tick()
+    sync(s.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if applied and s.eng.stats.n_fleet_fallbacks == fallbacks and (
+            s.eng.stats.n_launches - launches, k1.launches - k1_0) != (1, 1):
+        raise AssertionError(
+            f"phase r {what}: a fused tick made {k1.launches - k1_0} K1 "
+            f"launches and {s.eng.stats.n_launches - launches} engine "
+            f"launches (want 1 and 1)")
+    return applied, ms, device_allocs(s.device) - allocs0
+
+
+def r_drain(s: Service, wrappers, what: str):
+    """Tick until nothing is pending on a healthy lane; returns ticks."""
+    n = 0
+    while r_tick(s, wrappers, what)[0]:
+        n += 1
+    return n
+
+
+def lane_views_ok(s: Service):
+    """Every lane's flat/mu/nu is still a view of the fleet arena at its
+    block-aligned offset."""
+    offsets = dict(zip(s.plan.shard_ids, s.plan.concat_view()[0]))
+    for sid, st in s.rt.states.items():
+        for k, v in st.items():
+            arena = s.rt.arena[k]
+            if v._base is not arena or (v.data_ptr() - arena.data_ptr()
+                                        != 4 * offsets[sid]):
+                raise AssertionError(f"phase r: shard {sid}'s {k} is no "
+                                     f"longer a view of the fleet arena")
+
+
+def check_diffs(what, pulls, held, pushed, block_rows):
+    """Each job's versioned diff against its held bootstrap: the pushed
+    job ships every owned block and nothing else moves; patched onto the
+    held payload, each equals a full pull bit for bit.  ``pulls(j, v)``
+    is the engine's or a replica's versioned pull."""
+    for j, h in held.items():
+        d = pulls(j, h.version)
+        want = np.arange(block_rows[j]) if j == pushed else np.empty(0)
+        if d.full or not np.array_equal(d.block_ids, want):
+            raise AssertionError(
+                f"phase r {what}: the diff of {j} after a push of {pushed} "
+                f"is full={d.full} with {d.block_ids.size} of "
+                f"{block_rows[j]} blocks")
+        full = pulls(j, 0)
+        if not bits_equal(d.apply(h.data), full.data):
+            raise AssertionError(f"phase r {what}: {j}'s patched diff "
+                                 f"differs from a full pull")
+        del d, full
+
+
+def check_served(s: Service, rs, what: str):
+    """After a refresh the read tier serves every job's tree as the
+    engine pulls it, bit for bit."""
+    rs.refresh()
+    for j in s.rt.job_ids:
+        got, want = rs.pull(j), s.eng.pull(j)
+        if set(got) != set(want) or not all(bits_equal(got[k], want[k])
+                                             for k in want):
+            raise AssertionError(f"phase r {what}: the replica's tree pull "
+                                 f"of {j} differs from the engine's")
+        del got, want
+
+
+def read_phase(s: Service, wrappers):
+    """Phase r, on phase s's runtime: the read tier over the shard lanes,
+    a transient fault inside a fused fleet tick, and a lost shard.
+
+    r1: a ReplicaSet of 2 attached; 3 fused fleet ticks, the second of
+    one job's push only, after which versioned diff pulls of every job,
+    from the engine and from a replica, ship exactly that job's blocks
+    and patch onto the bootstrap to a full pull bit for bit; the replica's
+    tree pulls equal the engine's.  r2: ``fail_apply`` on the lane that
+    hosts the most jobs, in the second of 3 rounds: the fused tick falls
+    back, the participants roll back and replay, and the drained arena
+    equals a clone of it driven through the same pieces by the per-shard
+    appliers, bit for bit, every lane still a view of the arena.  r3:
+    ``kill_shard`` on a lane that hosts some jobs but not all: it
+    quarantines after its retry, the scaler holds, the other jobs tick
+    on, direct pulls of its jobs raise while a replica serves them
+    degraded, and ``recover_shard`` re-hosts it, held against the gather
+    oracle and the transition summary; then 2 fused ticks of every job
+    and the read tier re-subscribed.  Returns the phase's launch counts
+    (the oracle's K1 launches taken out)."""
+    from repro_torch.ps import elastic
+    from repro_torch.ps.autoscaler import AutoscalerConfig, ElasticScaler
+    from repro_torch.ps.faults import EngineQuarantinedError
+    from repro_torch.ps.replica import ReplicaSet
+
+    t_phase = time.perf_counter()
+    elastic.clear_plan_cache()
+    s.eng.drain()
+    reset_counters(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    k1 = wrappers["agg_adam_multijob_fused"]
+    rs = ReplicaSet(s.eng, n_replicas=2)
+    rep = rs.replicas[0]
+    eng, plan = s.eng, s.plan
+    block_rows = {j: sum(int(l.blocks.size)
+                         for l in plan.job_layout(j).layouts)
+                  for j in s.rt.job_ids}
+
+    # ---- r1: reads
+    ticks = []
+    s.push_all()
+    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    held = {j: eng.pull(j, since_version=0) for j in s.rt.job_ids}
+    rs.refresh()
+    held_rep = {j: rep.pull(j, since_version=0) for j in s.rt.job_ids}
+    for j in held:
+        if not (held_rep[j].full and bits_equal(held_rep[j].data,
+                                                 held[j].data)):
+            raise AssertionError(f"phase r r1: the replica's bootstrap of "
+                                 f"{j} differs from the engine's")
+    pushed = min(s.rt.job_ids, key=lambda j: block_rows[j])
+    s.push_all([pushed])
+    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    check_diffs("r1 engine", lambda j, v: eng.pull(j, since_version=v),
+                held, pushed, block_rows)
+    rs.refresh()
+    check_diffs("r1 replica", lambda j, v: rep.pull(j, since_version=v),
+                held_rep, pushed, block_rows)
+    del held, held_rep
+    s.push_all()
+    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    check_served(s, rs, "r1")
+    times = [t for t, _ in ticks]
+    print(f"phase r r1 (reads, ReplicaSet x2): fleet ticks with the hub "
+          f"attached ms={[round(t, 3) for t in times]} median="
+          f"{statistics.median(times):.3f} cuda_mallocs="
+          f"{[m for _, m in ticks]} (the second: {pushed} only); "
+          f"versioned diffs after a push "
+          f"of {pushed} only: {pushed} ships {block_rows[pushed]} of its "
+          f"{block_rows[pushed]} blocks, the others 0, from the engine and "
+          f"from a replica, patched = full pull bit_for_bit; replica tree "
+          f"pulls = engine pulls bit_for_bit; publishes={rs.n_publishes} "
+          f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+
+    # ---- r2: a transient fault inside a fused fleet tick
+    target = max(plan.shard_ids, key=lambda sid: len(
+        plan.shard_of(sid).job_ids))
+    stats0 = dataclasses.replace(eng.stats)
+    lane_rollbacks = eng._lanes[target].stats.n_rollbacks
+    replans = s.rt.n_replans
+    clone = {k: v.clone() for k, v in s.rt.arena.items()}
+    rounds = []
+    s.inj.fail_apply(target, at=2)
+    for _ in range(R_FAULT_ROUNDS):
+        s.push_all()
+        rounds.append(fleet_heads(s, at=-1))
+        r_drain(s, wrappers, "r2")
+    fired = s.inj.fire_counts().get("fail_apply", 0)
+    d_stats = {f: getattr(eng.stats, f) - getattr(stats0, f)
+               for f in ("n_fleet_fallbacks", "n_rollbacks", "n_replayed",
+                         "n_quarantines", "n_replans")}
+    if (fired != 1 or d_stats["n_fleet_fallbacks"] != 1
+            or eng._lanes[target].stats.n_rollbacks != lane_rollbacks + 1
+            or d_stats["n_quarantines"] or d_stats["n_replans"]
+            or s.rt.n_replans != replans or eng.quarantined_shards()):
+        raise AssertionError(f"phase r r2: fired={fired} {d_stats}; want "
+                             f"one fall-back, {target} rolled back once, "
+                             f"no quarantine and no replan")
+    k1_0 = k1.launches
+    for heads in rounds:
+        per_shard_on_clone(s, clone, heads)
+    oracle = k1.launches - k1_0
+    for k, v in clone.items():
+        if not bits_equal(v, s.rt.arena[k]):
+            raise AssertionError(
+                f"phase r r2: after the fault the arena's {k} differs from "
+                f"the fault-free per-shard replay (max abs "
+                f"{max_abs(v, s.rt.arena[k])})")
+    del clone, rounds
+    lane_views_ok(s)
+    print(f"phase r r2 (fail_apply on {target} in round 2 of "
+          f"{R_FAULT_ROUNDS}): {d_stats} the drained arena = the "
+          f"fault-free per-shard replay bit_for_bit (per_shard_k1_launches"
+          f"={oracle}), every lane a view of the arena", flush=True)
+
+    # ---- r3: a lost shard
+    hosts = {sid: set(plan.shard_of(sid).job_ids) for sid in plan.shard_ids}
+    jobs = set(s.rt.job_ids)
+    victims = [sid for sid, js in hosts.items() if js != jobs]
+    if not victims:
+        raise AssertionError("phase r r3: every shard hosts every job")
+    victim = min(victims, key=lambda sid: len(hosts[sid]))
+    hosted = [j for j in s.rt.job_ids if j in hosts[victim]]
+    spared = [j for j in s.rt.job_ids if j not in hosts[victim]]
+    scaler = ElasticScaler(s.rt, AutoscalerConfig(
+        shard_capacity=1.0, min_shards=s.rt.n_shards,
+        max_shards=s.rt.n_shards + 1, cooldown=1))
+    scaler.observe()  # opens the window
+    s.inj.kill_shard(victim, at=1)
+    s.push_all()
+    for _ in range(2 * (eng.max_apply_retries + 1)):
+        r_tick(s, wrappers, "r3")
+        if victim in eng.quarantined_shards():
+            break
+    else:
+        raise AssertionError(f"phase r r3: {victim} never quarantined")
+    t_quarantine = time.perf_counter()
+    if eng.quarantined_shards() != (victim,):
+        raise AssertionError(f"phase r r3: quarantined "
+                             f"{eng.quarantined_shards()}, want {victim}")
+    d = scaler.observe()
+    if d.action != "hold" or d.quarantined != (victim,):
+        raise AssertionError(f"phase r r3: the scaler did not hold on the "
+                             f"quarantined fleet: {d}")
+    spared_ms = []
+    for _ in range(2):
+        s.push_all(spared)
+        while True:
+            applied, ms, _ = r_tick(s, wrappers, "r3 spared jobs")
+            if not applied:
+                break
+            spared_ms.append(ms)
+        if any(eng.outstanding(j) for j in spared):
+            raise AssertionError("phase r r3: a job off the lost shard did "
+                                 "not drain")
+    for j in hosted:
+        try:
+            eng.pull(j)
+        except EngineQuarantinedError as exc:
+            if exc.shard_id != victim:
+                raise
+        else:
+            raise AssertionError(f"phase r r3: pull of {j} did not raise "
+                                 f"the quarantine of {victim}")
+        first, again = rep.pull(j), rep.pull(j)
+        if victim not in rep.degraded_lanes or not all(
+                bits_equal(first[k], again[k]) for k in first):
+            raise AssertionError(f"phase r r3: the replica's serve of {j} "
+                                 f"is not a deterministic degraded serve")
+        del first, again
+    lane = eng._lanes[victim]
+    futs = {id(f): f for q in lane.queues.values() for _, _, f, _ in q
+            if f is not None}
+    want = (sum(f.done() for f in futs.values()),
+            sum(not f.done() for f in futs.values()))
+    old = s.plan
+    report, replan_s, k2, (moved, touched) = sharded_transition(
+        s, "recovery", lambda: s.rt.recover_shard(victim), wrappers,
+        drain=False)
+    got = (report.rolled_back_pushes, report.cancelled_pushes)
+    if report.seeded_from != "snapshot" or got != want:
+        raise AssertionError(f"phase r r3: {report}; want seeded_from="
+                             f"snapshot and (rolled back, cancelled) {want}")
+    relaid = [sid for sid in s.plan.shard_ids if sid in old.shard_ids
+              and elastic.compile_migration_delta(
+                  old.shard_of(sid), s.plan.shard_of(sid)
+              ).touched_blocks.size]
+    if k2 != (len(relaid), len(relaid)):
+        raise AssertionError(f"phase r r3: K2 launches {k2}; the summary's "
+                             f"surviving shards with moved blocks: {relaid}")
+    times, _, mallocs, _ = fleet_ticks(s, 2, wrappers)
+    drained_s = time.perf_counter() - t_quarantine
+    if set(eng.shard_health().values()) != {"healthy"} or any(
+            rep._snaps[k].epoch != eng._epoch for k in s.plan.shard_ids):
+        raise AssertionError("phase r r3: after recovery the fleet is not "
+                             "healthy or the read tier did not re-subscribe")
+    check_served(s, rs, "r3")
+    counts = read_counters(wrappers)
+    counts["agg_adam_multijob_fused"] -= oracle
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase r r3 (kill_shard {victim}, hosting {hosted}; spared "
+          f"{spared}): quarantined after {eng.max_apply_retries} retry, "
+          f"scaler hold, spared-job fleet ticks ms="
+          f"{[round(t, 3) for t in spared_ms]} at 1 launch each, direct "
+          f"pulls raise, degraded serves deterministic; {report}; "
+          f"evacuation replan_s={replan_s:.2f} moved_elements={moved} "
+          f"touched={list(touched)} k2_launches(stage+scatter)={k2[0]}+"
+          f"{k2[1]} gather_oracle=bit_for_bit; then fleet ticks ms="
+          f"{[round(t, 3) for t in times]} cuda_mallocs={mallocs}; "
+          f"quarantine_to_drained_s="
+          f"{drained_s:.2f} (the checks above included)", flush=True)
+    if peak_gb > R_PEAK_GB:
+        raise AssertionError(f"phase r: {peak_gb:.2f} GB at peak, over its "
+                             f"{R_PEAK_GB} GB budget")
+    print(f"phase r (read side and recovery): counters={counts} peak_gb="
+          f"{peak_gb:.2f} engine={dataclasses.asdict(eng.stats)} seconds="
+          f"{time.perf_counter() - t_phase:.1f} host_maxrss_gb="
+          f"{host_rss_gb():.2f}", flush=True)
+    del rs, rep, scaler, lane, futs
     elastic.clear_plan_cache()
     return counts
 
@@ -2192,22 +2542,28 @@ def main() -> int:
     del s
 
     # ---- phase s: the sharded service, AWD-LM's arrival and a scaler's
-    # scale-out and scale-in, within its memory budget and leaving nothing
+    # scale-out and scale-in; then phase r on its runtime: the read tier
+    # over the shard lanes, a transient fault and a lost shard; within
+    # their memory budgets and leaving nothing behind
     gc.collect()
     torch.cuda.empty_cache()
     baseline = torch.cuda.memory_allocated()
-    counts = sharded_phase(device, wrappers, scale, flat_tick_ms)
+    counts, s = sharded_phase(device, wrappers, scale, flat_tick_ms)
     _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
                       "relayout_scatter"), "s")
     add_totals(counts)
+    counts = read_phase(s, wrappers)
+    _require(counts, ("agg_adam_multijob_fused",), "r")
+    add_totals(counts)
+    del s
     gc.collect()
     torch.cuda.empty_cache()
     leaked = torch.cuda.memory_allocated() - baseline
     if leaked > S_LEAK_BYTES:
-        raise AssertionError(f"phase s left {leaked / 2**20:.1f} MiB "
+        raise AssertionError(f"phases s and r left {leaked / 2**20:.1f} MiB "
                              f"allocated (budget {S_LEAK_BYTES >> 20} MiB)")
-    print(f"phase s leak check: {leaked} bytes left allocated (budget "
-          f"{S_LEAK_BYTES})", flush=True)
+    print(f"phases s and r leak check: {leaked} bytes left allocated "
+          f"(budget {S_LEAK_BYTES})", flush=True)
 
     # ---- phase d: real models on the device
     counts = mlp_phase(device, wrappers)

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Rehearse ``chip_smoke.py``'s phase s (the sharded service) on the CPU.
+"""Rehearse ``chip_smoke.py``'s phases s (the sharded service) and r (its
+read side and fault tolerance) on the CPU.
 
-Runs ``chip_smoke.sharded_phase`` on ``device="cpu"`` at a small scale of
-the paper inventories, so its control flow, its oracles (fused fleet tick
+Runs ``chip_smoke.sharded_phase`` and then ``chip_smoke.read_phase`` on
+its runtime, on ``device="cpu"`` at a small scale of the paper
+inventories, so their control flow, their oracles (fused fleet tick
 against the per-shard appliers, every transition against the gather
-oracle) and the scaler's hold/grow/shrink decisions can be checked without
-a card.  The kernel wrappers count only CUDA launches, so each is wrapped
-here in a stand-in that counts its calls; the card-only memory calls
-read 0.  Times printed by a rehearsal are CPU times, not the card's.
+oracle, the faulted arena against the fault-free per-shard replay, diff
+pulls against full pulls) and the scaler's decisions can be checked
+without a card.  The kernel wrappers count only CUDA launches, so each
+is wrapped here in a stand-in that counts its calls; the card-only
+memory calls read 0.  Times printed by a rehearsal are CPU times, not
+the card's.
 
     PYTHONPATH=src python3 scripts/torch_sharded_rehearsal.py [--scale 0.001]
 """
@@ -56,10 +60,13 @@ def main() -> int:
     }
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_stats = lambda *a, **k: {}
     chip_smoke.sync = lambda device: None
-    counts = chip_smoke.sharded_phase(torch.device("cpu"), wrappers,
-                                      args.scale, flat_tick_ms=[0.0])
-    print(f"rehearsal at scale {args.scale}: calls {counts}")
+    counts, s = chip_smoke.sharded_phase(torch.device("cpu"), wrappers,
+                                         args.scale, flat_tick_ms=[0.0])
+    print(f"rehearsal at scale {args.scale}: phase s calls {counts}")
+    counts = chip_smoke.read_phase(s, wrappers)
+    print(f"rehearsal at scale {args.scale}: phase r calls {counts}")
     return 0
 
 

@@ -549,6 +549,7 @@ def migrate_sharded_state(
     new: ShardedPlan,
     *,
     out: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    fault_injector=None,
 ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int, Tuple[str, ...]]:
     """Re-lay per-shard states (``agg_id`` -> flat/mu/nu of the shard's
     ``total_len``) onto a new ShardedPlan:
@@ -565,10 +566,15 @@ def migrate_sharded_state(
     runtime passes views of its next fleet arena); without it every shard
     gets fresh zero buffers.  The input ``states`` are only read, so a
     failure at any point leaves the caller's states whole; nothing
-    commits until the caller installs the result.
+    commits until the caller installs the result.  A ``fault_injector``
+    is asked before anything moves (``on_migration``) and after each
+    shard of the new plan is relaid (``on_migration_progress``).
 
     Returns ``(new_states, moved_elements, touched_jobs)``; the count and
     the touched set equal :func:`sharded_transition_summary`'s."""
+    desc = f"sharded:{old.n_shards}->{new.n_shards}"
+    if fault_injector is not None:
+        fault_injector.on_migration(desc)
     device = next(iter(states.values()))["flat"].device
     moved = 0
     touched: set = set()
@@ -608,6 +614,8 @@ def migrate_sharded_state(
                 del vals
             del idx
         new_states[sid] = st
+        if fault_injector is not None:
+            fault_injector.on_migration_progress(len(new_states), desc)
     # Jobs that only lived on REMOVED shards (or left) are touched too.
     _, sum_touched = sharded_transition_summary(old, new)
     touched.update(sum_touched)

@@ -38,7 +38,9 @@ push split into one piece per hosting shard, and ``tick_fleet`` applying
 every pending piece of the fleet in ONE launch of K1.  Its shard states
 are views into one fleet arena per leaf (``ShardedServiceRuntime.arena``),
 so the fleet tick hands K1 the arena with block tables rebased by each
-shard's offset, and no state is concatenated or sliced back.
+shard's offset, and no state is concatenated or sliced back.  Its
+lanes roll back, replay and quarantine one by one, and a failed fleet
+launch falls back to per-shard launches of the same kernel.
 """
 
 from __future__ import annotations
@@ -72,10 +74,12 @@ __all__ = ["PullDiff", "PullVersion", "PushFuture", "ServiceTickEngine",
 class PushFuture:
     """Handle for one submitted push; resolves when a tick applies it.  A
     push dropped without applying is CANCELLED: ``result()`` raises
-    instead of forcing ticks forever."""
+    instead of forcing ticks forever.  A push whose applied effect was
+    later discarded by ``recover_shard`` (it lay in the lost lane's
+    rollback window) keeps its step but reports ``rolled_back``."""
 
     __slots__ = ("job_id", "_engine", "_done", "_step", "_remaining",
-                 "_cancelled")
+                 "_cancelled", "_rolled_back")
 
     def __init__(self, job_id: str, engine, parts: int = 1):
         self.job_id = job_id
@@ -86,6 +90,7 @@ class PushFuture:
         # shard; the future resolves when the last piece applies.
         self._remaining = int(parts)
         self._cancelled = None  # str reason once cancelled
+        self._rolled_back = False  # applied, then lost with a dead shard
 
     def done(self) -> bool:
         return self._done
@@ -93,11 +98,21 @@ class PushFuture:
     def cancelled(self) -> bool:
         return self._cancelled is not None
 
+    @property
+    def rolled_back(self) -> bool:
+        """True if this push had applied but ``recover_shard`` discarded
+        its effect (re-push to land the update again)."""
+        return self._rolled_back
+
     def result(self, timeout: Optional[float] = None) -> int:
         """Force service ticks until applied; returns the job's 1-based
-        step count as of this push.  ``timeout`` (seconds, wall clock)
-        raises ``TimeoutError`` at the deadline; a quarantined engine
-        raises its :class:`EngineQuarantinedError` out of ``tick()``."""
+        step count as of this push.  When ticking makes no progress and
+        the push can never resolve, raises the blocking lane's
+        :class:`EngineQuarantinedError` (or a ``RuntimeError`` when the
+        piece is gone); with ``timeout`` (seconds, wall clock) it waits
+        out the deadline first and then raises that quarantine error or
+        ``TimeoutError``.  The flat engine's single lane raises its
+        quarantine out of ``tick()`` itself."""
         deadline = (None if timeout is None
                     else time.monotonic() + float(timeout))
         while not self._done:
@@ -106,13 +121,22 @@ class PushFuture:
                     f"push for job {self.job_id!r} will never apply: "
                     f"{self._cancelled}")
             if deadline is not None and time.monotonic() >= deadline:
+                stall = self._engine._stall_error(self.job_id)
+                if isinstance(stall, EngineQuarantinedError):
+                    raise stall
                 raise TimeoutError(
                     f"push for job {self.job_id!r} still unapplied after "
-                    f"{timeout} s")
+                    f"{timeout} s (hosting lane quarantined, or a piece "
+                    f"was dropped in transit)")
             if self._engine.tick() == 0 and not self._done:
+                # No progress: a rollback may just have re-queued work
+                # (keep ticking), or the push is stuck for good.
                 stall = self._engine._stall_error(self.job_id)
-                if stall is not None:
+                if stall is None:
+                    continue
+                if deadline is None:
                     raise stall
+                time.sleep(0.001)  # wait out the timeout, don't hot-spin
         return self._step
 
     def _resolve(self, step: int) -> bool:
@@ -125,6 +149,14 @@ class PushFuture:
             self._step = int(step)
             return True
         return False
+
+    def _unresolve(self) -> None:
+        """A rollback un-applied one piece: a pending future gets the part
+        back (it must not complete before the replay re-applies it); a
+        done one stays done, its result already observable and the
+        replay re-landing the identical update."""
+        if not self._done:
+            self._remaining += 1
 
     def _cancel(self, reason: str) -> None:
         if not self._done and self._cancelled is None:
@@ -150,7 +182,7 @@ class TickStats:
     n_rollbacks: int = 0  # failed applies recovered by snapshot restore
     n_replayed: int = 0  # applied pushes re-queued for replay by rollbacks
     n_quarantines: int = 0  # lanes that exhausted retries and stopped
-    n_fleet_fallbacks: int = 0  # (fleet fall-back to per-shard: item 8)
+    n_fleet_fallbacks: int = 0  # failed fleet launches replayed per shard
     n_lease_expirations: int = 0  # (leases, not ported yet)
     push_bytes_raw: int = 0  # fp32 bytes of every submitted push
     push_bytes_wire: int = 0  # same pushes on the wire (fp32: equal)
@@ -768,19 +800,29 @@ class ServiceTickEngine:
 
 # --------------------------------------------------------------- sharded
 class _ShardLane:
-    """One shard space's service loop state: its own queues, appliers,
-    TickStats and rollback anchor."""
+    """One shard space's service loop state: its own queues, appliers and
+    TickStats, and its own health, rollback anchor and replay log (the
+    unit of independent cadence is also the unit of failure isolation).
+    Diff-pull versions are stamped per job: within an epoch every block
+    of the lane belongs to one job, so a block's version is its job's
+    last stamp."""
 
-    __slots__ = ("shard_id", "queues", "appliers", "stats", "snapshot",
-                 "ticks_since_snapshot")
+    __slots__ = ("shard_id", "queues", "appliers", "stats", "health",
+                 "quarantine_error", "snapshot", "log",
+                 "ticks_since_snapshot", "failures", "job_versions")
 
     def __init__(self, shard_id: str):
         self.shard_id = shard_id
         self.queues: Dict[str, deque] = {}  # job -> (piece, count, fut, ep)
         self.appliers: Dict[Tuple[str, ...], Callable] = {}
         self.stats = TickStats()
+        self.health = HEALTHY
+        self.quarantine_error: Optional[EngineQuarantinedError] = None
         self.snapshot = None  # clone of this shard's state (rollback anchor)
+        self.log: List[Tuple] = []  # (job, piece, count, fut) since the clone
         self.ticks_since_snapshot = 0
+        self.failures = 0  # consecutive failed applies (reset on success)
+        self.job_versions: Dict[str, int] = {}  # job -> last version stamp
 
 
 class ShardedTickEngine:
@@ -805,10 +847,21 @@ class ShardedTickEngine:
     Replans follow the flat engine's protocol: the runtime drains only
     the jobs the sharded transition touches, untouched jobs' pieces are
     re-tagged across the epoch fence, and lanes are keyed by the stable
-    ``agg_id``.  Not ported yet: lane rollback and quarantine, the fleet
-    tick's fall-back to per-shard replay and fault injection (item 8; an
-    apply failure propagates as its exception), sharded versioned pulls
-    (item 7b) and leases (item 9).
+    ``agg_id``.
+
+    Fault tolerance is per lane.  Every ``snapshot_interval`` of its
+    applying ticks a lane clones its state and logs the pieces applied
+    since; a failed apply copies the clone back into the lane's views of
+    the arena and replays the log, and ``max_apply_retries`` consecutive
+    failures QUARANTINE the lane: ``tick_shard`` skips it, ``tick_fleet``
+    leaves it out of the launch, and blocked work (``drain``, ``pull``,
+    ``result``) raises its :class:`EngineQuarantinedError` while the other
+    lanes tick on.  A failed fleet launch cannot say which lane failed, so
+    every participating lane rolls back and ticks alone with its own
+    launches of the same kernel (``n_fleet_fallbacks``).  K1 writes the
+    arena in place, so with ``snapshot_interval=0`` a failed lane may be
+    half-written and is quarantined at once.  Leases (item 9) are not
+    ported yet.
     """
 
     MAX_APPLIERS = 32  # appliers per lane (one per pending-job subset)
@@ -816,7 +869,8 @@ class ShardedTickEngine:
     def __init__(self, runtime, *, max_staleness: int = 1,
                  queue_capacity: Optional[int] = None,
                  min_batch_jobs: int = 3, fleet_tick: str = "fused",
-                 snapshot_interval: int = 8, fault_injector=None,
+                 snapshot_interval: int = 8, max_apply_retries: int = 1,
+                 fault_injector=None, retry_policy=None,
                  lease_interval: Optional[float] = None):
         if max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
@@ -826,9 +880,7 @@ class ShardedTickEngine:
         if snapshot_interval < 0:
             raise ValueError(
                 f"snapshot_interval must be >= 0 (0 disables rollback "
-                f"anchors), got {snapshot_interval}")
-        if fault_injector is not None:
-            raise _not_in_slice("fault injection on the sharded engine", "8")
+                f"recovery), got {snapshot_interval}")
         if lease_interval is not None:
             raise _not_in_slice("leases (lease_interval)", "9")
         self.runtime = runtime
@@ -839,17 +891,24 @@ class ShardedTickEngine:
             raise ValueError("queue_capacity must be >= 1")
         self.min_batch_jobs = int(min_batch_jobs)
         self.fleet_tick = fleet_tick
-        # Per-lane rollback anchors, cloned every this many of the lane's
-        # own applying ticks (the restore that uses them is item 8).
         self.snapshot_interval = int(snapshot_interval)
+        if retry_policy is None:
+            retry_policy = RetryPolicy(max_retries=int(max_apply_retries))
+        self.retry_policy = retry_policy
+        self.max_apply_retries = int(retry_policy.max_retries)
+        self.fault_injector = fault_injector
         self.stats = TickStats()  # fleet-aggregate counters
         self._epoch = 0
+        self._version_clock = 0  # fleet-wide monotone diff-pull clock
         self._lanes: Dict[str, _ShardLane] = {}
         self._counts: Dict[str, int] = {}  # job step mirror (submit time)
         # Fleet appliers are keyed by the whole pending pattern
         # ((shard_id, jobs), ...), apart from the per-lane caches.
         self._fleet_appliers: Dict[Tuple, Callable] = {}
         self._rows: Dict[str, Tuple] = {}  # job -> per-shard rows on device
+        # Read tier: a ReplicaSet registers here and is offered each
+        # ticking lane for publication.
+        self._replica_hub = None
 
     # ------------------------------------------------------------- plumbing
     @property
@@ -889,13 +948,26 @@ class ShardedTickEngine:
         """Per-shard TickStats (the autoscaler's load signal)."""
         return {sid: lane.stats for sid, lane in self._lanes.items()}
 
+    # ---------------------------------------------------------- lane health
     def shard_health(self) -> Dict[str, str]:
-        """Per-lane health; every lane is healthy until quarantine is
-        ported (item 8)."""
-        return {sid: HEALTHY for sid in self._lanes}
+        """Per-lane health, ``'healthy'`` or ``'quarantined'`` (the
+        autoscaler holds a fleet with a quarantined lane)."""
+        return {sid: lane.health for sid, lane in self._lanes.items()}
 
     def quarantined_shards(self) -> Tuple[str, ...]:
-        return ()
+        return tuple(sid for sid, lane in self._lanes.items()
+                     if lane.health == QUARANTINED)
+
+    def _quarantine_blocking(
+            self, only=None) -> Optional[EngineQuarantinedError]:
+        """The error of a quarantined lane that still holds queued pieces
+        of the given jobs (any job when None): no ticking applies them."""
+        for lane in self._lanes.values():
+            if lane.health == QUARANTINED and any(
+                    q and (only is None or j in only)
+                    for j, q in lane.queues.items()):
+                return lane.quarantine_error
+        return None
 
     def _has_pending(self, only=None) -> bool:
         return any(q and (only is None or j in only)
@@ -903,28 +975,48 @@ class ShardedTickEngine:
                    for j, q in lane.queues.items())
 
     def _stall_error(self, job_id: str) -> Optional[Exception]:
+        """Why a tick round that applied nothing cannot resolve this job's
+        push: an exception to raise, or None while progress is still
+        possible (a rollback may just have re-queued the replay)."""
+        exc = self._quarantine_blocking((job_id,))
+        if exc is not None:
+            return exc
         if any(lane.queues.get(job_id) for lane in self._lanes.values()):
             return None
         return RuntimeError(
             f"push for job {job_id!r} can never resolve: no queued piece "
-            f"remains for it on any lane")
+            f"remains for it on any lane (dropped in transit?)")
 
     def _force_staleness(self, job_id: str) -> None:
         while self.outstanding(job_id) > self.max_staleness:
             self.stats.n_forced_staleness += 1
-            self.tick()
+            if self.tick() == 0:
+                stall = self._stall_error(job_id)
+                if stall is not None:
+                    # The backlog sits on a quarantined lane (or is gone):
+                    # no number of ticks drains it.
+                    raise stall
 
     # ------------------------------------------------------------ data path
     def pull(self, job_id: str, since_version=None):
         """The job's parameters gathered across its hosting shards (a tree
-        of copies), after forcing tick rounds down to the staleness
-        bound."""
-        if since_version is not None:
-            raise _not_in_slice(
-                "sharded versioned pulls (pull(job, since_version=...))",
-                "7b")
+        of copies), after forcing tick rounds down to the staleness bound.
+        A quarantined hosting lane raises its error: its state froze at
+        the last-good snapshot, and read-tier replicas are the degraded
+        path.
+
+        ``since_version`` switches to the versioned diff protocol (see
+        :meth:`ServiceTickEngine.pull`): the job-local version vector is
+        its hosting shards' versions in shard order, the order its packed
+        pieces concatenate in."""
         layout = self._layout(job_id)
+        for sid in layout.shard_ids:
+            lane = self._lanes.get(sid)
+            if lane is not None and lane.health == QUARANTINED:
+                raise lane.quarantine_error
         self._force_staleness(job_id)
+        if since_version is not None:
+            return self._pull_versioned(job_id, layout, since_version)
         self.stats.n_full_pulls += 1
         self.stats.pull_bytes_wire += 4 * layout.packed_len
         self.stats.pull_bytes_full += 4 * layout.packed_len
@@ -933,25 +1025,101 @@ class ShardedTickEngine:
     def _params(self, job_id: str, layout):
         """The job's parameter tree, gathered from its hosting shards into
         a new packed vector (never a view of the arena)."""
-        packed = _gather_packed(layout, self._job_rows(job_id, layout),
-                                [self.runtime.states[sid]["flat"]
-                                 for sid in layout.shard_ids])
-        return _unpack_slots(layout, packed,
+        return _unpack_slots(layout, self._packed(job_id, layout),
                              self.runtime._jobs[job_id]["abstract"])
+
+    def _packed(self, job_id: str, layout) -> torch.Tensor:
+        return _gather_packed(layout, self._job_rows(job_id, layout),
+                              [self.runtime.states[sid]["flat"]
+                               for sid in layout.shard_ids])
+
+    # ----------------------------------------------------- versioned pulls
+    def _stamp_lane(self, lane: _ShardLane, jobs) -> None:
+        """Advance the fleet-wide version clock and stamp the given jobs
+        on this lane: every applying tick, and on rollback, so a rewound
+        block never looks unchanged to a diff client.  O(jobs): the
+        per-block vector of a pull is built from the stamps."""
+        if self.plan is None or not jobs:
+            return
+        self._version_clock += 1
+        for j in jobs:
+            if j in self.runtime._jobs:
+                lane.job_versions[j] = self._version_clock
+
+    def _pull_versioned(self, job_id: str, layout, since) -> PullDiff:
+        vers = np.concatenate([
+            np.full(l.blocks.size, self._lane(sid).job_versions.get(job_id, 0),
+                    np.int64)
+            for sid, l in zip(layout.shard_ids, layout.layouts)])
+        version = PullVersion(epoch=self._epoch, versions=vers)
+        bytes_full = 4 * layout.packed_len
+        blocks = {l.block for l in layout.layouts}
+        uniform = len(blocks) == 1
+        full = (not uniform  # mixed granularity: no single row width
+                or not isinstance(since, PullVersion)
+                or since.epoch != self._epoch
+                or since.versions.size != vers.size)
+        if full:
+            diff = PullDiff(
+                job_id=job_id, version=version, full=True,
+                block=(blocks.pop() if uniform else 0),
+                block_ids=np.empty(0, np.int64),
+                data=self._packed(job_id, layout), bytes_wire=bytes_full,
+                bytes_full=bytes_full)
+            self.stats.n_full_pulls += 1
+        else:
+            (block,) = blocks
+            changed = vers > since.versions
+            data_parts, id_parts = [], []
+            off = 0  # job-local block row of this shard's first piece row
+            for sid, l in zip(layout.shard_ids, layout.layouts):
+                nb = int(l.blocks.size)
+                sel = np.nonzero(changed[off:off + nb])[0]
+                if sel.size:
+                    flat = self.runtime.states[sid]["flat"]
+                    rows = host_to_device(l.blocks[sel], flat.device,
+                                          torch.int64)
+                    data_parts.append(flat.view(-1, block)[rows])
+                    id_parts.append(off + sel)
+                off += nb
+            if data_parts:
+                data = (torch.cat(data_parts) if len(data_parts) > 1
+                        else data_parts[0])
+                ids = np.concatenate(id_parts).astype(np.int64)
+            else:
+                data = torch.zeros((0, block), dtype=torch.float32,
+                                   device=self.runtime.device)
+                ids = np.empty(0, np.int64)
+            diff = PullDiff(
+                job_id=job_id, version=version, full=False, block=block,
+                block_ids=ids, data=data,
+                bytes_wire=4 * int(ids.size) * block, bytes_full=bytes_full)
+            self.stats.n_diff_pulls += 1
+        self.stats.pull_bytes_wire += diff.bytes_wire
+        self.stats.pull_bytes_full += bytes_full
+        return diff
 
     def _enqueue(self, job_id: str, layout, pieces) -> PushFuture:
         count = self._counts[job_id] + 1
         self._counts[job_id] = count
         fut = PushFuture(job_id, self, parts=len(pieces))
+        inj = self.fault_injector
         for sid, piece in zip(layout.shard_ids, pieces):
-            # Wire accounting per piece, on the fleet and the lane alike.
+            # Wire accounting per piece, on the fleet and the lane alike;
+            # the bytes are spent even when the injector drops the piece.
             n = int(piece.numel())
             lane = self._lane(sid)
             for st in (self.stats, lane.stats):
                 st.push_bytes_raw += 4 * n
                 st.push_bytes_wire += 4 * n
-            lane.queues.setdefault(job_id, deque()).append(
-                (piece, count, fut, self._epoch))
+            action = "deliver" if inj is None else inj.on_push(job_id, sid)
+            if action == "drop":
+                continue  # lost in transit: the future keeps the part
+            q = lane.queues.setdefault(job_id, deque())
+            q.append((piece, count, fut, self._epoch))
+            if action == "duplicate":
+                # At-least-once delivery: the copy applies untracked.
+                q.append((piece, count, None, self._epoch))
         return fut
 
     def _force_capacity(self, job_id: str, layout) -> None:
@@ -963,6 +1131,10 @@ class ShardedTickEngine:
                 return
             self.stats.n_forced_capacity += 1
             for sid in full:
+                lane = self._lanes[sid]
+                if lane.health == QUARANTINED:
+                    # A full queue on a lane that never ticks again.
+                    raise lane.quarantine_error
                 self.tick_shard(sid)
 
     def submit_push(self, job_id: str, grads) -> PushFuture:
@@ -1009,12 +1181,19 @@ class ShardedTickEngine:
                     f"the engine is at {self._epoch}; a replan migrated "
                     f"this job's layout without draining it")
 
-    def _commit(self, lane: _ShardLane, jobs, heads) -> None:
-        """Resolve the applied pieces' futures; a push that applied on its
-        LAST hosting shard commits the job's global step count."""
-        for j, (_, count, fut, _) in zip(jobs, heads):
+    def _applied(self, lane: _ShardLane, jobs, heads) -> None:
+        """Resolve the applied pieces' futures and log them for replay; a
+        push that applied on its LAST hosting shard commits the job's
+        global step count (only the done transition commits, so a
+        replayed piece never rewinds it)."""
+        lane.failures = 0
+        for j, (piece, count, fut, _) in zip(jobs, heads):
             if fut is not None and fut._resolve(count):
                 self.runtime.counts[j] = count
+            lane.log.append((j, piece, count, fut))
+
+    def _lane_ticked(self, lane: _ShardLane, jobs) -> None:
+        self._stamp_lane(lane, jobs)  # diff-pull dirty marks
         lane.stats.n_ticks += 1
         lane.stats.n_applied += len(jobs)
         lane.ticks_since_snapshot += 1
@@ -1023,9 +1202,10 @@ class ShardedTickEngine:
         """One tick of ONE shard space: pop the head piece of every
         pending job on this lane and apply them with the lane's own
         launches (one, at or above ``min_batch_jobs`` pending jobs; one
-        per job below).  Other shards are untouched."""
+        per job below).  Other shards are untouched; a quarantined lane
+        is skipped (returns 0)."""
         lane = self._lanes.get(shard_id)
-        if lane is None:
+        if lane is None or lane.health == QUARANTINED:
             return 0
         pending = [j for j in self.runtime._jobs
                    if lane.queues.get(j) and (only is None or j in only)]
@@ -1037,8 +1217,11 @@ class ShardedTickEngine:
             lane.stats.n_per_job_dispatch += 1
         else:
             groups = [tuple(pending)]
-        self._maybe_snapshot_lane(lane)
-        heads_all = []
+        snapped = self._maybe_snapshot_lane(lane)
+        if self._replica_hub is not None:
+            # Read-tier publish point, at the rollback snapshot: a refresh
+            # tick's clone is published, not taken again.
+            self._replica_hub.on_tick(shard_id, snapped)
         for key in groups:
             heads = [lane.queues[j].popleft() for j in key]
             try:
@@ -1048,41 +1231,111 @@ class ShardedTickEngine:
                     if len(lane.appliers) >= self.MAX_APPLIERS:
                         lane.appliers.pop(next(iter(lane.appliers)))
                     lane.appliers[key] = applier
-                applier(self.runtime.states[shard_id],
-                        tuple(h[0] for h in heads),
-                        tuple(h[1] for h in heads))
             except BaseException:
-                # Re-queue and surface the error: rolling the lane back
-                # to its snapshot and replaying is item 8.
+                # Build-time failure: nothing ran, re-queue the heads.
                 for j, head in zip(key, heads):
                     lane.queues[j].appendleft(head)
                 raise
-            heads_all.extend(heads)
-        self._commit(lane, pending, heads_all)
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector.on_apply(shard_id)
+                applier(self.runtime.states[shard_id],
+                        tuple(h[0] for h in heads),
+                        tuple(h[1] for h in heads))
+            except Exception as exc:
+                # The applier writes in place, so the lane may be partly
+                # updated: re-queue the heads, roll back and replay (the
+                # rollback also undoes this tick's earlier groups), or
+                # quarantine this lane alone.
+                for j, head in zip(key, heads):
+                    lane.queues[j].appendleft(head)
+                self._handle_lane_failure(lane, exc, key)
+                lane.stats.n_ticks += 1
+                self.stats.n_ticks += 1
+                return 0
+            self._applied(lane, key, heads)
+        self._lane_ticked(lane, pending)
         lane.stats.n_launches += len(groups)
         self.stats.n_ticks += 1
         self.stats.n_applied += len(pending)
         self.stats.n_launches += len(groups)
         return len(pending)
 
-    def _maybe_snapshot_lane(self, lane: _ShardLane) -> None:
+    # ------------------------------------------------------- fault recovery
+    def _maybe_snapshot_lane(self, lane: _ShardLane) -> bool:
         """Refresh the lane's rollback anchor, a CLONE of its state (the
         appliers write the arena in place), every ``snapshot_interval``
-        of its applying ticks, before the apply."""
+        of its applying ticks, before the apply; the replay log empties
+        with it.  Returns True when this call refreshed it (the read tier
+        then publishes this clone's ``flat``)."""
         if self.snapshot_interval <= 0:
-            return
+            return False
         if (lane.snapshot is None
                 or lane.ticks_since_snapshot >= self.snapshot_interval):
             lane.snapshot = None  # free the old clone before taking one
             lane.snapshot = _copy_state(self.runtime.states[lane.shard_id])
+            lane.log = []
             lane.ticks_since_snapshot = 0
             lane.stats.n_snapshots += 1
             self.stats.n_snapshots += 1
+            return True
+        return False
+
+    def _rollback_lane(self, lane: _ShardLane) -> None:
+        """Copy the lane's snapshot back INTO its views of the fleet arena
+        (rebinding them would drop the lane out of every later fleet
+        tick, which launches K1 over the arena) and re-queue the logged
+        pieces in front, per-job order kept: later ticks replay the
+        identical (piece, count) sequence, bit for bit since counts were
+        fixed at submit time.  The snapshot is only read: it stays
+        pristine for another rollback, and a replica may serve its
+        ``flat``."""
+        state = self.runtime.states[lane.shard_id]
+        for k, v in lane.snapshot.items():
+            state[k].copy_(v)
+        # The restore rewound the logged jobs' blocks: re-stamp them so a
+        # diff client that saw the undone values is told they changed.
+        self._stamp_lane(lane, {j for j, _, _, _ in lane.log})
+        for j, piece, count, fut in reversed(lane.log):
+            if fut is not None:
+                fut._unresolve()
+            lane.queues.setdefault(j, deque()).appendleft(
+                (piece, count, fut, self._epoch))
+            lane.stats.n_replayed += 1
+            self.stats.n_replayed += 1
+        lane.log = []
+        lane.ticks_since_snapshot = 0
+        lane.stats.n_rollbacks += 1
+        self.stats.n_rollbacks += 1
+
+    def _quarantine(self, lane: _ShardLane, jobs, exc: Exception) -> None:
+        lane.health = QUARANTINED
+        lane.quarantine_error = EngineQuarantinedError(
+            shard_id=lane.shard_id, tick=lane.stats.n_ticks, job_ids=jobs,
+            original=exc)
+        lane.stats.n_quarantines += 1
+        self.stats.n_quarantines += 1
+
+    def _handle_lane_failure(self, lane: _ShardLane, exc: Exception,
+                             key) -> None:
+        """Roll the lane back for replay, or quarantine it when retries
+        are exhausted or it has no snapshot (the error is stored, not
+        raised: the other lanes keep ticking, and blocked work raises
+        it)."""
+        lane.failures += 1
+        can_roll = lane.snapshot is not None
+        if can_roll and self.retry_policy.should_retry(lane.failures):
+            self.retry_policy.backoff(lane.failures)
+            self._rollback_lane(lane)
+            return
+        if can_roll:
+            self._rollback_lane(lane)  # leave last-good state installed
+        self._quarantine(lane, key, exc)
 
     def tick(self, only=None) -> int:
         """One ROUND over the fleet: :meth:`tick_fleet` (one launch) with
         ``fleet_tick="fused"``, every lane's :meth:`tick_shard` with
-        ``"per_shard"``.  Returns pieces applied (0: nothing pending)."""
+        ``"per_shard"``.  Returns pieces applied (0: nothing applied)."""
         plan = self.plan
         if plan is None:
             return 0
@@ -1093,17 +1346,19 @@ class ShardedTickEngine:
 
     def tick_fleet(self, only=None) -> int:
         """One FLEET tick: pop the head piece of every pending job on
-        every lane and apply all of them in ONE launch of K1 over the
-        fleet arena, each entry's block table rebased by its shard's
-        offset.  Lanes with nothing pending are skipped: they are not in
-        the table and their stats do not move.  Returns pieces applied."""
+        every healthy lane and apply all of them in ONE launch of K1 over
+        the fleet arena, each entry's block table rebased by its shard's
+        offset.  Lanes with nothing pending, and quarantined lanes, are
+        not in the table and their stats do not move.  On a failure every
+        participating lane rolls back and ticks alone (``tick_shard``).
+        Returns pieces applied."""
         plan = self.plan
         if plan is None:
             return 0
         entries = []
         for sid in plan.shard_ids:
             lane = self._lanes.get(sid)
-            if lane is None:
+            if lane is None or lane.health == QUARANTINED:
                 continue
             pending = tuple(
                 j for j in self.runtime._jobs
@@ -1121,21 +1376,40 @@ class ShardedTickEngine:
             if len(self._fleet_appliers) >= self.MAX_APPLIERS:
                 self._fleet_appliers.pop(next(iter(self._fleet_appliers)))
             self._fleet_appliers[key] = applier
+        # Snapshot the participants with their queues whole, so each
+        # lane's (snapshot, log) anchors a rollback of this very launch.
         for sid, _ in key:
-            self._maybe_snapshot_lane(self._lanes[sid])
+            snapped = self._maybe_snapshot_lane(self._lanes[sid])
+            if self._replica_hub is not None:
+                self._replica_hub.on_tick(sid, snapped)
         popped = [(sid, jobs, [self._lanes[sid].queues[j].popleft()
                                for j in jobs]) for sid, jobs in key]
         heads = [h for _, _, hs in popped for h in hs]
         try:
+            if self.fault_injector is not None:
+                for sid, _ in key:
+                    self.fault_injector.on_apply(sid)
             applier(self.runtime.arena, tuple(h[0] for h in heads),
                     tuple(h[1] for h in heads))
-        except BaseException:
+        except Exception as exc:
             for sid, jobs, hs in popped:
                 for j, head in zip(jobs, hs):
                     self._lanes[sid].queues[j].appendleft(head)
-            raise
+            self.stats.n_ticks += 1
+            if self.snapshot_interval <= 0:
+                # No anchors, and K1 may have half-written any
+                # participant in place: quarantine them all.
+                for sid, jobs in key:
+                    self._quarantine(self._lanes[sid], jobs, exc)
+                return 0
+            self.stats.n_fleet_fallbacks += 1
+            for sid, _ in key:
+                self._rollback_lane(self._lanes[sid])
+            return sum(self.tick_shard(sid) for sid, _ in key)
         for sid, jobs, hs in popped:
-            self._commit(self._lanes[sid], jobs, hs)
+            self._applied(self._lanes[sid], jobs, hs)
+        for sid, jobs in key:
+            self._lane_ticked(self._lanes[sid], jobs)
         self.stats.n_ticks += 1
         self.stats.n_applied += len(heads)
         self.stats.n_launches += 1  # ONE launch for the whole fleet
@@ -1143,17 +1417,27 @@ class ShardedTickEngine:
 
     def drain(self, only=None) -> int:
         """Tick rounds until every (selected) queue on every lane is
-        empty.  Returns pieces applied."""
+        empty.  Returns pieces applied.  A round may apply nothing while
+        a rollback replays (the loop goes on); pieces stuck on a
+        quarantined lane never drain, so that raises the lane's
+        :class:`EngineQuarantinedError`."""
         applied = 0
         while True:
             n = self.tick(only=only)
-            if n == 0:
-                return applied
             applied += n
+            if n:
+                continue
+            stuck = self._quarantine_blocking(only)
+            if stuck is not None:
+                raise stuck
+            if not self._has_pending(only):
+                return applied
 
     def quiesce_for_replan(self, touched) -> int:
         """Drain ONLY the touched jobs' pieces (on every lane) ahead of a
-        sharded migration; untouched jobs keep their queues."""
+        sharded migration; untouched jobs keep their queues.  A touched
+        piece frozen on a quarantined lane raises that lane's error
+        (``recover_shard`` takes the lost lane out first)."""
         applied = 0
         while True:
             pending = [j for j in touched
@@ -1162,23 +1446,37 @@ class ShardedTickEngine:
             if not pending:
                 return applied
             self.stats.n_forced_replan += 1
-            applied += self.tick(only=pending)
+            n = self.tick(only=pending)
+            applied += n
+            if n == 0:
+                stuck = self._quarantine_blocking(pending)
+                if stuck is not None:
+                    raise stuck
 
     # --------------------------------------------------------------- replan
     def _on_plan_change(self, touched=None) -> None:
         """A sharded replan landed.  Every fleet applier goes (each bakes
         every shard's arena offset, and any shard joining or leaving moves
-        the later ones), and so does every lane snapshot (it holds the old
-        geometry).  ``touched=None`` requires every queue empty and drops
-        everything; with a touched set only the touched jobs' appliers
-        and rows go, lanes whose Aggregator left are dropped, and
-        untouched jobs' queued pieces are re-tagged to the new epoch."""
+        the later ones), and so does every lane's snapshot, log and
+        version stamps (they hold the old geometry; the epoch bump sends
+        held PullVersions to the full fallback).  Health survives: a
+        quarantined lane stays quarantined.  ``touched=None`` requires
+        every queue empty and drops everything; with a touched set only
+        the touched jobs' appliers and rows go, lanes whose Aggregator
+        left are dropped, and untouched jobs' queued pieces are re-tagged
+        to the new epoch."""
         self._epoch += 1
         self.stats.n_replans += 1
         self._fleet_appliers.clear()
         for lane in self._lanes.values():
             lane.snapshot = None
+            lane.log = []
             lane.ticks_since_snapshot = 0
+            lane.job_versions = {}
+        if self._replica_hub is not None:
+            # Read-tier snapshots hold the old geometry too: the epoch
+            # fence marks them stale and the next serve resubscribes.
+            self._replica_hub.on_replan()
         if touched is None:
             if self._has_pending():
                 raise RuntimeError("replan with queued pieces: the runtime "
@@ -1224,6 +1522,8 @@ class ShardedTickEngine:
                         fut._cancel("job removed from the runtime with this "
                                     "piece still queued (drain was "
                                     "bypassed)")
+            lane.log = [e for e in lane.log if e[0] != job_id]
+            lane.job_versions.pop(job_id, None)
             lane.appliers = {k: v for k, v in lane.appliers.items()
                              if job_id not in k}
         self._fleet_appliers = {

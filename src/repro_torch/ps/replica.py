@@ -1,8 +1,9 @@
 """Read tier: pull-only parameter replicas fed by publish-on-tick snapshots
-of the tick engine's flat space (``repro.ps.replica``).
+of the tick engines' lanes (``repro.ps.replica``): the flat engine's one
+space, or each shard space of the sharded engine.
 
-  publish      every applying tick the engine offers the hub a snapshot
-               ``(flat, version vector, epoch)`` at ``publish_interval``,
+  publish      every applying tick each lane offers the hub a snapshot
+               ``(flat, version stamps, epoch)`` at ``publish_interval``,
                pre-apply, at the rollback-snapshot point.  On a tick that
                refreshes the rollback anchor the published ``flat`` IS the
                anchor's clone; other publish ticks clone ``flat`` alone
@@ -21,18 +22,21 @@ of the tick engine's flat space (``repro.ps.replica``).
 
 Replans cross an epoch fence: a held snapshot of the old geometry is
 detected stale on the next serve and the replica resubscribes with a
-forced publish.  A quarantined engine stops publishing; the replica keeps
-serving its last-good snapshot with the serve flagged ``degraded``.
+forced publish.  A quarantined lane stops publishing; the replica keeps
+serving its last-good snapshot with the serve flagged ``degraded``, and a
+job spanning several shards is stitched from each hosting lane's
+snapshot.
 
 Aliasing.  The reference publishes immutable arrays.  Here the tick's
 kernel writes the live state in place, so a published ``flat`` is always
 a clone: the rollback anchor's (which the engine never writes: a
-rollback installs a clone of it) or one taken at publish time.  Every
-served payload is a new tensor.
+rollback copies it back into the live state) or one taken at publish
+time.  Every served payload is a new tensor.
 
-The flat engine is one unnamed lane.  The read tier over the sharded
-engine's lanes (``ShardedTickEngine``) is not ported yet (ROADMAP.md,
-Queue 1 item 7b).
+Versions.  The engines stamp versions per job (within an epoch every
+block of a lane belongs to one job), so a snapshot carries the lane's
+per-job stamps and a serve builds the job's per-block vector from them:
+no per-block work on the write path.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import torch
 from ..device import host_to_device
 from .engine import PullDiff, PullVersion
 from .faults import QUARANTINED
-from .runtime import _not_in_slice, _unpack_slots
+from .runtime import _unpack_slots
 
 __all__ = ["ParameterReplica", "ReadStats", "ReplicaSet", "ShardSnapshot"]
 
@@ -66,7 +70,7 @@ class ShardSnapshot:
     tick: int  # the lane's applying-tick counter at publish
     seq: int  # hub-wide publish sequence number
     flat: torch.Tensor  # (total_len,) parameter buffer
-    versions: np.ndarray  # per-``block_align``-block versions, full space
+    job_versions: Dict[str, int]  # job -> its blocks' version (0: none)
 
 
 @dataclass
@@ -179,7 +183,7 @@ class ParameterReplica:
             # AHEAD of this replica's snapshot; a diff against older
             # published versions would report "no change".  Refresh to at
             # least the client's view.
-            vers = self._job_versions(keys, layouts)
+            vers = self._job_versions(job_id, keys, layouts)
             if (since_version.epoch == self._hub.epoch
                     and since_version.versions.size == vers.size
                     and np.any(since_version.versions > vers)):
@@ -196,10 +200,12 @@ class ParameterReplica:
         finally:
             self.stats.serve_seconds += time.perf_counter() - t0
 
-    def _job_versions(self, keys, layouts) -> np.ndarray:
-        parts = [self._snaps[k].versions[l.blocks]
-                 for k, l in zip(keys, layouts)]
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    def _job_versions(self, job_id, keys, layouts) -> np.ndarray:
+        """The job-local version vector: one entry per owned block, the
+        hosting lanes in shard order (the packed pieces' order)."""
+        return np.concatenate([
+            np.full(l.blocks.size, self._snaps[k].job_versions.get(job_id, 0),
+                    np.int64) for k, l in zip(keys, layouts)])
 
     def _packed(self, keys, layouts) -> torch.Tensor:
         pieces = [_gather_rows(self._snaps[k].flat, l.block, l.blocks
@@ -214,21 +220,25 @@ class ParameterReplica:
         return _unpack_slots(layout, packed, abstract)
 
     def _serve_diff(self, job_id, keys, layouts, since) -> PullDiff:
-        vers = self._job_versions(keys, layouts)
+        vers = self._job_versions(job_id, keys, layouts)
         version = PullVersion(epoch=self._hub.epoch, versions=vers)
-        (block,) = {l.block for l in layouts}
+        blocks = {l.block for l in layouts}
+        uniform = len(blocks) == 1
         bytes_full = 4 * sum(int(l.blocks.size) * l.block for l in layouts)
-        full = (not isinstance(since, PullVersion)
+        full = (not uniform  # mixed granularity: no single row width
+                or not isinstance(since, PullVersion)
                 or since.epoch != self._hub.epoch
                 or since.versions.size != vers.size)
         if full:
             diff = PullDiff(
-                job_id=job_id, version=version, full=True, block=block,
+                job_id=job_id, version=version, full=True,
+                block=(blocks.pop() if uniform else 0),
                 block_ids=np.empty(0, np.int64),
                 data=self._packed(keys, layouts), bytes_wire=bytes_full,
                 bytes_full=bytes_full)
             self.stats.n_full_serves += 1
         else:
+            (block,) = blocks
             changed = vers > since.versions
             data_parts, id_parts = [], []
             off = 0
@@ -265,7 +275,9 @@ class ParameterReplica:
         for a held vector) collect into one row-index table over the
         involved lanes' snapshot matrices, one ``index_select`` ships
         them all, and the rows split back into per-job
-        :class:`PullDiff` results."""
+        :class:`PullDiff` results.  Lanes that disagree on
+        ``block_align`` have no single row width: those batches are
+        served job by job."""
         t0 = time.perf_counter()
         try:
             reqs = [(j, since) for j, since in requests]
@@ -278,8 +290,13 @@ class ParameterReplica:
                     if k not in lanes:
                         lanes.append(k)
             self._ensure_fresh(lanes)
-            (block,) = {l.block for _, layouts in per_job for l in layouts}
-            out = self._serve_batch(reqs, per_job, lanes, block)
+            blocks = {l.block for _, layouts in per_job for l in layouts}
+            if len(blocks) == 1:
+                out = self._serve_batch(reqs, per_job, lanes, blocks.pop())
+            else:
+                out = [self._serve_diff(j, keys, layouts,
+                                        0 if since is None else since)
+                       for (j, since), (keys, layouts) in zip(reqs, per_job)]
             self.stats.n_batches += 1
             self.stats.n_batch_jobs += len(reqs)
             return out
@@ -299,7 +316,7 @@ class ParameterReplica:
         plan_rows: List[np.ndarray] = []  # global row ids, request order
         metas = []  # (job_id, version, full, ids, n_rows, bytes_full)
         for (j, since), (keys, layouts) in zip(reqs, per_job):
-            vers = self._job_versions(keys, layouts)
+            vers = self._job_versions(j, keys, layouts)
             version = PullVersion(epoch=epoch, versions=vers)
             bytes_full = 4 * sum(int(l.blocks.size) * block for l in layouts)
             full = (not isinstance(since, PullVersion)
@@ -357,11 +374,13 @@ class ReplicaSet:
     """N pull-only replicas subscribed to one tick engine.
 
     The set registers itself as the engine's replica hub: every applying
-    tick the engine offers its lane for publication (pre-apply, at the
-    rollback-snapshot point, so a snapshot tick adds no extra copy), and
-    the hub publishes the same snapshot to every replica.  Reads route
-    round robin via :meth:`pull` / :meth:`pull_batch` (or pick a replica
-    from :attr:`replicas`)."""
+    tick the engine offers each ticking lane for publication (pre-apply,
+    at the rollback-snapshot point, so a snapshot tick adds no extra
+    copy), and the hub publishes the same snapshot to every replica.  On
+    a :class:`~repro_torch.ps.engine.ShardedTickEngine` the lanes are its
+    shard spaces, keyed by shard id; on the flat engine one ``None``
+    lane.  Reads route round robin via :meth:`pull` / :meth:`pull_batch`
+    (or pick a replica from :attr:`replicas`)."""
 
     def __init__(self, engine, n_replicas: int = 2, *,
                  publish_interval: int = 1,
@@ -375,14 +394,13 @@ class ReplicaSet:
             raise ValueError(
                 f"max_staleness_ticks must be >= 0 (None disables the "
                 f"bound), got {max_staleness_ticks}")
-        if hasattr(engine, "_lanes"):
-            raise _not_in_slice("the read tier over sharded lanes", "7b")
         if getattr(engine, "_replica_hub", None) is not None:
             raise ValueError("engine already has a ReplicaSet attached")
         self.engine = engine
         self.publish_interval = int(publish_interval)
         self.max_staleness_ticks = (None if max_staleness_ticks is None
                                     else int(max_staleness_ticks))
+        self._sharded = hasattr(engine, "_lanes")
         self._seq = 0
         self._since_pub: Dict[Optional[str], int] = {}
         self.n_publishes = 0
@@ -398,25 +416,51 @@ class ReplicaSet:
         return self.engine._epoch
 
     def _lane_keys(self) -> List[Optional[str]]:
-        return [_FLAT_LANE]
+        if not self._sharded:
+            return [_FLAT_LANE]
+        plan = self.engine.plan
+        return [] if plan is None else list(plan.shard_ids)
 
     def lane_tick(self, key: Optional[str]) -> int:
-        return self.engine.stats.n_ticks
+        if not self._sharded:
+            return self.engine.stats.n_ticks
+        lane = self.engine._lanes.get(key)
+        return 0 if lane is None else lane.stats.n_ticks
 
     def lane_quarantined(self, key: Optional[str]) -> bool:
-        return self.engine.health == QUARANTINED
+        if not self._sharded:
+            return self.engine.health == QUARANTINED
+        lane = self.engine._lanes.get(key)
+        return lane is not None and lane.health == QUARANTINED
 
     def lane_error(self, key: Optional[str]):
-        return self.engine.quarantine_error
+        if not self._sharded:
+            return self.engine.quarantine_error
+        return self.engine._lanes[key].quarantine_error
+
+    def _lane_job_versions(self, key: Optional[str]) -> Dict[str, int]:
+        """A copy of the lane's per-job version stamps."""
+        if not self._sharded:
+            return dict(self.engine._job_versions)
+        lane = self.engine._lanes.get(key)
+        return {} if lane is None else dict(lane.job_versions)
 
     def _live_flat(self, key: Optional[str]) -> torch.Tensor:
-        return self.engine.runtime.state["flat"]
+        """The lane's live ``flat``: the tick writes it in place, so a
+        publish clones it."""
+        if not self._sharded:
+            return self.engine.runtime.state["flat"]
+        return self.engine.runtime.states[key]["flat"]
 
     def _anchor_flat(self, key: Optional[str]) -> Optional[torch.Tensor]:
         """The rollback anchor's ``flat`` (already a clone), or None when
-        the engine holds no snapshot."""
-        snap = self.engine._snapshot
-        return None if snap is None else snap[0]["flat"]
+        the lane holds no snapshot."""
+        if not self._sharded:
+            snap = self.engine._snapshot
+            return None if snap is None else snap[0]["flat"]
+        lane = self.engine._lanes.get(key)
+        return (None if lane is None or lane.snapshot is None
+                else lane.snapshot["flat"])
 
     def on_tick(self, key: Optional[str], snapped: bool) -> None:
         """Engine hook, once per applying tick, PRE-apply (right after the
@@ -440,15 +484,22 @@ class ReplicaSet:
 
     def on_replan(self) -> None:
         """Engine hook: a replan landed (epoch bumped).  The next serve
-        detects the stale epoch and resubscribes with a forced publish."""
+        detects the stale epoch and resubscribes with a forced publish.
+        Snapshots of lanes that left the fleet (a merge, a recovered
+        shard) are dropped: no job routes to them any more, and each
+        holds a clone of a whole shard's ``flat``."""
         self._since_pub.clear()
+        live = set(self._lane_keys())
+        for rep in self.replicas:
+            for key in [k for k in rep._snaps if k not in live]:
+                del rep._snaps[key]
 
     # ---------------------------------------------------------- publication
     def _publish(self, key: Optional[str], flat: torch.Tensor) -> None:
         snap = ShardSnapshot(
             shard_id=key, epoch=self.engine._epoch,
             tick=self.lane_tick(key), seq=self._seq, flat=flat,
-            versions=self.engine._versions_array())  # read-only
+            job_versions=self._lane_job_versions(key))
         self._seq += 1
         self.n_publishes += 1
         for rep in self.replicas:
@@ -475,12 +526,15 @@ class ReplicaSet:
 
     # ------------------------------------------------------------ job lookup
     def job_lanes(self, job_id: str):
-        """(lane keys, per-lane JobLayouts) hosting the job: the flat
-        engine's single ``None`` lane."""
+        """(lane keys, per-lane JobLayouts) hosting the job, in shard
+        order; the flat engine's single ``None`` lane."""
         plan = self.engine.plan
         if plan is None:
             raise ValueError("no plan compiled: the service hosts no jobs")
-        return [_FLAT_LANE], [plan.job_layout(job_id)]
+        layout = plan.job_layout(job_id)
+        if self._sharded:
+            return list(layout.shard_ids), list(layout.layouts)
+        return [_FLAT_LANE], [layout]
 
     def job_layout_abstract(self, job_id: str):
         return (self.engine.plan.job_layout(job_id),

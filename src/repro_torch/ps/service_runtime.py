@@ -23,7 +23,8 @@ independent cadences or the whole fleet in one launch, and the fleet
 grows and shrinks with load (:class:`~repro_torch.ps.autoscaler.ElasticScaler`
 through ``service.scale_out`` / ``scale_in``).  The shard spaces' states
 are views into ONE fleet arena per leaf, so the fleet tick addresses
-every shard without copying state.
+every shard without copying state.  ``recover_shard`` re-hosts a lost
+(quarantined) shard's segments on the surviving fleet.
 
 Both runtimes run on the card unless given ``device="cpu"``.
 """
@@ -31,6 +32,8 @@ Both runtimes run on the card unless given ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -47,6 +50,7 @@ from .elastic import (
     plan_cache_stats,
     sharded_transition_summary,
 )
+from .faults import QUARANTINED
 from .plan import FlatPlan, ShardedPlan
 from .runtime import (
     _gather_packed,
@@ -304,6 +308,30 @@ class ServiceRuntime:
 
 
 # --------------------------------------------------------------- sharded
+@dataclass(frozen=True)
+class RecoveryReport:
+    """What one :meth:`ShardedServiceRuntime.recover_shard` did.
+
+    ``seeded_from`` names where the re-hosted segments' values came from:
+    ``"snapshot"`` (the quarantined lane's last-good snapshot, installed
+    when it stopped), ``"live"`` (a healthy shard: no rollback) or
+    ``"zeros"`` (quarantined with no snapshot: its in-place state was
+    untrustworthy).  ``rolled_back_pushes`` counts done futures whose
+    effect was discarded with the lost lane (``rolled_back`` set),
+    ``cancelled_pushes`` pending pushes that can never apply, and
+    ``purged_sibling_pieces`` queued pieces of those pushes removed from
+    healthy lanes."""
+
+    shard_id: str
+    seeded_from: str  # 'snapshot' | 'live' | 'zeros'
+    rolled_back_pushes: int
+    cancelled_pushes: int
+    purged_sibling_pieces: int
+    rehosted_segments: int
+    rehosted_elements: int
+    moved_tasks: int
+
+
 def _init_shard_state(splan: ShardedPlan, device):
     """Zeroed state for every shard space of ``splan`` (the counterpart of
     the reference's per-shard ``_init_shard_state``), laid out as ONE fleet
@@ -367,8 +395,7 @@ class ShardedServiceRuntime:
     ONE Aggregator the shard space is the flat runtime's and the
     trajectory reproduces it bit for bit.
 
-    Not ported yet: ``recover_shard`` (item 8), checkpoints (item 11),
-    compressed pushes (item 4).
+    Not ported yet: checkpoints (item 11), compressed pushes (item 4).
     """
 
     def __init__(self, service, device: DeviceLike = None):
@@ -528,8 +555,77 @@ class ShardedServiceRuntime:
             [self.states[sid]["flat"] for sid in layout.shard_ids])
         return _unpack_slots(layout, packed, self._jobs[job_id]["abstract"])
 
-    def recover_shard(self, agg_id: str):
-        raise _not_in_slice("recover_shard", "8")
+    def recover_shard(self, agg_id: str) -> RecoveryReport:
+        """Declare ONE Aggregator lost and re-host its segments on the
+        surviving fleet through an ordinary control-plane replan
+        (``service.evacuate_aggregator``): untouched jobs tick straight
+        through it and the moved segments ride the sharded delta path.
+
+        A quarantined lane's state was restored to its last-good snapshot
+        when it stopped, so clients see at most ``snapshot_interval``
+        ticks of rollback; with no snapshot (``snapshot_interval=0``) the
+        in-place apply may have left it half-written, so its views are
+        zeroed and the segments re-seed empty.  A healthy shard drains
+        first and its live state migrates (a decommission, no rollback).
+        The pushes left on the lost lane surface on their futures: done
+        ones get ``rolled_back``, pending ones are cancelled, and their
+        sibling pieces are purged from healthy lanes so no push applies
+        on some shards only."""
+        if self.splan is None or agg_id not in self.splan.shard_ids:
+            raise ValueError(
+                f"unknown shard {agg_id!r}: not in the live fleet "
+                f"(have {list(self.shard_ids)})")
+        old_sp = self.splan.shard_of(agg_id)
+        seeded_from = "live"
+        rolled_back = cancelled = purged = 0
+        eng = self._engine
+        lane = None
+        if eng is not None:
+            lane = eng._lanes.get(agg_id)
+            if lane is not None and lane.health != QUARANTINED:
+                while any(lane.queues.values()):
+                    if eng.tick_shard(agg_id) == 0:
+                        break  # leftovers are cancelled below
+            lane = eng._lanes.pop(agg_id, None)
+        if lane is not None:
+            if lane.health == QUARANTINED:
+                if lane.snapshot is not None:
+                    seeded_from = "snapshot"
+                else:
+                    seeded_from = "zeros"
+                    for v in self.states[agg_id].values():
+                        v.zero_()
+            dead = set()
+            for q in lane.queues.values():
+                for _, _, fut, _ in q:
+                    if fut is None:
+                        continue
+                    if fut.done():
+                        if not fut._rolled_back:
+                            fut._rolled_back = True
+                            rolled_back += 1
+                    elif not fut.cancelled():
+                        fut._cancel(
+                            f"shard {agg_id!r} was lost with this piece "
+                            f"queued (inside its rollback window); re-push "
+                            f"after recovery")
+                        cancelled += 1
+                        dead.add(id(fut))
+            if dead:
+                for other in eng._lanes.values():
+                    for j, q in list(other.queues.items()):
+                        kept = deque(e for e in q if e[2] is None
+                                     or id(e[2]) not in dead)
+                        purged += len(q) - len(kept)
+                        other.queues[j] = kept
+        moved_tasks = self.service.evacuate_aggregator(agg_id)
+        return RecoveryReport(
+            shard_id=agg_id, seeded_from=seeded_from,
+            rolled_back_pushes=rolled_back, cancelled_pushes=cancelled,
+            purged_sibling_pieces=purged,
+            rehosted_segments=len(old_sp.segments),
+            rehosted_elements=old_sp.payload_elements,
+            moved_tasks=moved_tasks)
 
     def save_checkpoint(self, directory, step: int, **kw):
         raise _not_in_slice("sharded checkpoints", "11")
@@ -564,7 +660,9 @@ class ShardedServiceRuntime:
                 engine.quiesce_for_replan(
                     [j for j in touched_pre if j in self._jobs])
             states, moved_elems, touched_exec = migrate_sharded_state(
-                self.states, old, new, out=fresh)
+                self.states, old, new, out=fresh,
+                fault_injector=(engine.fault_injector
+                                if engine is not None else None))
             touched = set(touched_exec)
         else:
             if engine is not None and self.states:

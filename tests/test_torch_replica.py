@@ -9,7 +9,7 @@ compared field for field; payloads within the 1-ulp budget of
 ``tests/test_torch_service.py`` where Adam ran, and bit for bit inside the
 port where only copies ran (a replica's serve against the engine's own
 pull).  The cases mirror those of ``tests/test_replica.py`` that touch the
-flat engine; the sharded lanes are not ported yet.
+flat engine; ``tests/test_torch_sharded_read.py`` holds the sharded ones.
 
 Publishes fire PRE-apply, so a replica trails the live state by the tick
 in flight; ``ReplicaSet.refresh()`` publishes the current state, and every
@@ -161,11 +161,12 @@ def test_replica_set_validates_arguments():
     with pytest.raises(ValueError, match="already has a ReplicaSet"):
         ReplicaSet(eng)
 
-    class ShardedLike:
+    class ShardedLike:  # a sharded engine: its lanes are its shard ids
         _lanes = {}
+        plan = None
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReplicaSet(ShardedLike())
+    sharded = ReplicaSet(ShardedLike())
+    assert sharded._sharded and sharded._lane_keys() == []
 
 
 # ---------------------------------------------- engine versioned pulls
