@@ -53,11 +53,36 @@ the paper workloads' full tensor inventories:
      summary (the relayout kernels wherever a surviving shard's delta
      moves blocks); then 2 fused ticks of every job and the read tier
      re-subscribed across the epoch.  The phase must stay within 45 GB at
-     peak, and phases s and r together leave at most 256 MiB allocated;
-     times are printed, never checked;
+     peak; times are printed, never checked;
+  q. a fresh sharded fleet with compressed pushes, a lease and a
+     checkpoint: AlexNet plain, VGG19 ``push_compression="int8"`` and
+     BERT-base ``"bf16"`` on 2 shards (the fleet arena gains a fourth
+     leaf, ``ef``), the engine with a lease interval on a manual clock;
+     q1, 4 fused fleet ticks, each one launch of the multi-job Adam
+     kernel after the error-feedback rounds of the compressed pieces, the
+     last held bit for bit against the per-shard appliers on a clone of
+     the arena (ef included); each job's push alone must cost at most half
+     of fp32 on the wire (int8), half (bf16) or all of it (plain);
+     AWD-LM arrives with int8 through a sharded replan (the relayout
+     kernels moving four leaves), held against the gather oracle on
+     flat/mu/nu/ef; a ``fail_apply`` inside a fused tick, the drained arena
+     held against the per-shard replay on a clone, every lane's ef still a
+     view of the arena; q2, AWD-LM goes silent with a push queued while
+     the others push, and after its lease ``expire_leases()`` must reclaim
+     it alone through a replan held against the gather oracle, its queued
+     future raising ``LeaseExpiredError``; q3, ``save_checkpoint`` of the
+     fleet under ``build/`` (the free space checked first; the directory
+     always removed), 2 more ticks, ``restore_checkpoint`` into the live
+     runtime: the arena must equal the clone taken at the save bit for
+     bit, every lane a view, and the next fused tick the per-shard
+     appliers' tick on that clone.  The phase must stay within 50 GB at
+     peak, and phases s, r and q together leave at most 256 MiB
+     allocated; the EF round's own time is printed, never checked;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
-     with the block kernel;
+     with the block kernel; a compressed (int8) MLP job in two twin
+     runtimes, through ``engine.step`` and ``ServiceRuntime.step`` on the
+     same batches, must end bit for bit equal (flat/mu/nu/ef);
 
 and, after the service's state is freed, training of Qwen1.5-0.5B at its
 published config (24 layers, d_model 1024, vocab 151,936, bf16; batch 8
@@ -361,7 +386,7 @@ class Service:
 
     LR = {"alexnet": 1e-3, "vgg19": 5e-4, "bert": 1e-4, "awd-lm": 3e-3}
 
-    def __init__(self, device, scale, sharded=False):
+    def __init__(self, device, scale, sharded=False, **engine):
         from repro_torch.core import ParameterService
         from repro_torch.ps.service_runtime import (
             ServiceRuntime,
@@ -382,7 +407,8 @@ class Service:
             self.rt = ShardedServiceRuntime(self.svc, device=device)
             self.eng = self.rt.attach_engine(max_staleness=1,
                                              fleet_tick="fused",
-                                             fault_injector=self.inj)
+                                             fault_injector=self.inj,
+                                             **engine)
         else:
             self.rt = ServiceRuntime(self.svc, device=device)
             self.eng = self.rt.attach_engine(max_staleness=1)
@@ -396,8 +422,10 @@ class Service:
         return {k: torch.randn(n, generator=self.gen, device=self.device)
                 * 0.02 for k, n in chunked_inventory(model, self.scale)}
 
-    def add(self, model):
+    def add(self, model, compression=None):
         extra = {"agg_throughput": 7e9 * self.scale} if self.sharded else {}
+        if compression:
+            extra["push_compression"] = compression
         self.rt.add_job(model, self.params(model), _no_model_loss,
                         required_servers=2, lr=self.LR[model], **extra)
 
@@ -760,14 +788,15 @@ def k2_entries(before, delta, device):
 
 # ------------------------------------------- phase s: the sharded service
 S_PEAK_GB = 65.0  # phase s's budget of device memory at peak
-S_LEAK_BYTES = 256 << 20  # what phases s and r may leave allocated
+S_LEAK_BYTES = 256 << 20  # what phases s, r and q may leave allocated
 
 
 def gather_jobs(s: Service, jobs):
     """The gather oracle of a sharded transition: each job's packed
-    flat/mu/nu read through its ShardedJobLayout, its tensors' lanes
-    ordered by leaf key (a transition may move a tensor to another shard
-    and so reorder the packed vector), as new tensors."""
+    flat/mu/nu (and ef, on a fleet with compressed jobs) read through its
+    ShardedJobLayout, its tensors' lanes ordered by leaf key (a
+    transition may move a tensor to another shard and so reorder the
+    packed vector), as new tensors."""
     from repro_torch.ps.runtime import _gather_packed, _layout_rows
 
     out = {}
@@ -776,7 +805,7 @@ def gather_jobs(s: Service, jobs):
         rows = _layout_rows(layout, s.device)
         slots = sorted(layout.slots)
         out[j] = {}
-        for k in ("flat", "mu", "nu"):
+        for k in s.rt.arena:
             packed = _gather_packed(
                 layout, rows, [s.rt.states[sid][k]
                                for sid in layout.shard_ids])
@@ -814,7 +843,8 @@ def per_shard_on_clone(s: Service, clone, heads):
     return len(heads)
 
 
-def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
+def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False,
+                phase: str = "phase s"):
     """``n`` rounds: every resident job pushes one seeded packed gradient
     (one piece per hosting shard), then ONE fleet tick, timed on the host
     clock to a synchronize.  Each tick must apply every piece and add
@@ -845,11 +875,11 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
         mallocs.append(device_allocs(s.device) - allocs0)
         if (s.eng.stats.n_launches - launches0, k1.launches - k1_0) != (1, 1):
             raise AssertionError(
-                f"phase s: a fleet tick made {k1.launches - k1_0} K1 "
+                f"{phase}: a fleet tick made {k1.launches - k1_0} K1 "
                 f"launches and {s.eng.stats.n_launches - launches0} "
                 f"engine launches (want 1 and 1)")
         if applied != pieces:
-            raise AssertionError(f"phase s: a fleet tick applied {applied} "
+            raise AssertionError(f"{phase}: a fleet tick applied {applied} "
                                  f"of {pieces} pieces")
         if clone is not None:
             k1_0 = k1.launches
@@ -858,25 +888,27 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False):
             for k, v in clone.items():
                 if not bits_equal(v, s.rt.arena[k]):
                     raise AssertionError(
-                        f"phase s: the fused fleet tick and the per-shard "
+                        f"{phase}: the fused fleet tick and the per-shard "
                         f"oracle differ in {k} (max abs "
                         f"{max_abs(v, s.rt.arena[k])})")
             del clone, heads
     return times, enqueue, mallocs, oracle
 
 
-def sharded_transition(s: Service, what: str, fn, wrappers, drain=True):
+def sharded_transition(s: Service, what: str, fn, wrappers, drain=True,
+                       jobs=None):
     """Drain (unless the caller has), read every resident job's packed
-    state through its layout, run the replan ``fn``, then hold the
-    migrated states against those reads bit for bit and the runtime's
-    moved bytes and touched jobs against ``sharded_transition_summary``.
-    Returns (fn's result, replan s, K2 launches (stage, scatter), the
-    summary)."""
+    state (or that of ``jobs``, those that stay) through its layout, run
+    the replan ``fn``, then hold the migrated states against those reads
+    bit for bit and the runtime's moved bytes and touched jobs against
+    ``sharded_transition_summary``.  ``what`` names the phase and step
+    in errors.  Returns (fn's result, replan s, K2 launches (stage,
+    scatter), the summary)."""
     from repro_torch.ps.elastic import sharded_transition_summary
 
     if drain:
         s.eng.drain()
-    jobs = s.rt.job_ids
+    jobs = s.rt.job_ids if jobs is None else tuple(jobs)
     before = gather_jobs(s, jobs)
     old = s.plan
     k2_0 = (wrappers["relayout_stage"].launches,
@@ -895,7 +927,7 @@ def sharded_transition(s: Service, what: str, fn, wrappers, drain=True):
     if (s.rt.last_relayout_bytes, s.rt.last_replan_touched) != (
             12 * moved, touched):
         raise AssertionError(
-            f"phase s {what}: moved {s.rt.last_relayout_bytes} B and "
+            f"{what}: moved {s.rt.last_relayout_bytes} B and "
             f"touched {s.rt.last_replan_touched}; the summary says "
             f"{12 * moved} B and {touched}")
     for j in jobs:
@@ -903,7 +935,7 @@ def sharded_transition(s: Service, what: str, fn, wrappers, drain=True):
         for k, v in before.pop(j).items():
             if not bits_equal(after[k], v):
                 raise AssertionError(
-                    f"phase s {what}: {j}'s packed {k} differs from the "
+                    f"{what}: {j}'s packed {k} differs from the "
                     f"gather oracle (max abs {max_abs(after[k], v)})")
         del after
     return out, replan_s, k2, (moved, touched)
@@ -964,6 +996,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
     times, enqueue, mallocs, n = fleet_ticks(s, 4, wrappers,
                                              oracle_last=True)
     oracle += n
+    s.fleet_tick_ms = times  # the 3-job ticks phase q compares with
     print(s_line("1 (3 jobs)", times, stats0, s.eng.stats, None, peak(),
                  f" fused_vs_per_shard=bit_for_bit per_shard_k1_launches={n}"
                  f" host_enqueue_ms={[round(t, 3) for t in enqueue]}"
@@ -973,7 +1006,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
 
     stats0 = step_start()
     _, replan_s, k2, (moved, touched) = sharded_transition(
-        s, "arrival", lambda: s.add("awd-lm"), wrappers)
+        s, "phase s arrival", lambda: s.add("awd-lm"), wrappers)
     if min(k2) < 1:
         raise AssertionError(f"phase s arrival: K2 launches {k2}")
     times, _, _, _ = fleet_ticks(s, 2, wrappers)
@@ -997,7 +1030,7 @@ def sharded_phase(device, wrappers, scale, flat_tick_ms):
         stats0 = step_start()
         times, _, _, _ = fleet_ticks(s, rounds, wrappers)
         d, replan_s, k2, summary = sharded_transition(
-            s, f"{name} window", scaler.observe, wrappers)
+            s, f"phase s {name} window", scaler.observe, wrappers)
         if d.action != want:
             raise AssertionError(f"phase s: the {name} window's decision is "
                                  f"{d.action}, not {want}: {d}")
@@ -1053,7 +1086,7 @@ def r_tick(s: Service, wrappers, what: str):
     if applied and s.eng.stats.n_fleet_fallbacks == fallbacks and (
             s.eng.stats.n_launches - launches, k1.launches - k1_0) != (1, 1):
         raise AssertionError(
-            f"phase r {what}: a fused tick made {k1.launches - k1_0} K1 "
+            f"{what}: a fused tick made {k1.launches - k1_0} K1 "
             f"launches and {s.eng.stats.n_launches - launches} engine "
             f"launches (want 1 and 1)")
     return applied, ms, device_allocs(s.device) - allocs0
@@ -1113,6 +1146,86 @@ def check_served(s: Service, rs, what: str):
         del got, want
 
 
+def transient_fault(s: Service, wrappers, what: str, in_k1: bool = False):
+    """A ``fail_apply`` on the lane that hosts the most jobs (with
+    ``in_k1``, the K1 update raising once INSIDE the fused applier, after
+    the tick's error-feedback rounds wrote the arena's ``ef`` in place), in
+    the second of ``R_FAULT_ROUNDS`` push rounds: the fused tick must fall
+    back once (the lane rolled back once, no quarantine, no replan), and
+    the drained arena (every leaf, ef included) must equal a clone of it
+    taken before, driven through the same pieces by the per-shard
+    appliers, bit for bit, every lane still a view of the arena.  Returns
+    (the target, the counters' moves, the oracle's K1 launches)."""
+    from repro_torch.kernels.agg_adam import ops as agg_ops
+
+    k1 = wrappers["agg_adam_multijob_fused"]
+    # The applier's K1 call; the stand-in replaces it and not the wrapper,
+    # whose launch counter is an attribute of its module-level name.
+    update = agg_ops.multi_job_adam_update_fused
+    eng, plan = s.eng, s.plan
+    target = max(plan.shard_ids, key=lambda sid: len(
+        plan.shard_of(sid).job_ids))
+    stats0 = dataclasses.replace(eng.stats)
+    lane_rollbacks = eng._lanes[target].stats.n_rollbacks
+    replans = s.rt.n_replans
+    clone = {k: v.clone() for k, v in s.rt.arena.items()}
+    rounds = []
+    ctl = {"ef0": None, "dirty": None, "fired": 0}
+
+    def k1_fails_once(*args, **kw):
+        if ctl["ef0"] is not None:
+            # Armed: the EF rounds of this very tick have run by now.
+            ctl["dirty"] = not torch.equal(s.rt.arena["ef"], ctl["ef0"])
+            ctl["ef0"] = None
+            ctl["fired"] += 1
+            raise RuntimeError(f"{what}: K1 fails after the EF rounds")
+        return update(*args, **kw)
+
+    if in_k1:
+        agg_ops.multi_job_adam_update_fused = k1_fails_once
+    else:
+        s.inj.fail_apply(target, at=2)
+    fired0 = s.inj.fire_counts().get("fail_apply", 0)
+    try:
+        for r in range(R_FAULT_ROUNDS):
+            s.push_all()
+            rounds.append(fleet_heads(s, at=-1))
+            if in_k1 and r == 1:
+                ctl["ef0"] = s.rt.arena["ef"].clone()
+            r_drain(s, wrappers, what)
+    finally:
+        agg_ops.multi_job_adam_update_fused = update
+    ctl["ef0"] = None
+    fired = (ctl["fired"] if in_k1 else
+             s.inj.fire_counts().get("fail_apply", 0) - fired0)
+    if in_k1 and ctl["dirty"] is not True:
+        raise AssertionError(f"{what}: K1 raised with the arena's ef as "
+                             f"before the tick: no EF round had written it")
+    d_stats = {f: getattr(eng.stats, f) - getattr(stats0, f)
+               for f in ("n_fleet_fallbacks", "n_rollbacks", "n_replayed",
+                         "n_quarantines", "n_replans")}
+    if (fired != 1 or d_stats["n_fleet_fallbacks"] != 1
+            or eng._lanes[target].stats.n_rollbacks != lane_rollbacks + 1
+            or d_stats["n_quarantines"] or d_stats["n_replans"]
+            or s.rt.n_replans != replans or eng.quarantined_shards()):
+        raise AssertionError(f"{what}: fired={fired} {d_stats}; want "
+                             f"one fall-back, {target} rolled back once, "
+                             f"no quarantine and no replan")
+    k1_0 = k1.launches
+    for heads in rounds:
+        per_shard_on_clone(s, clone, heads)
+    oracle = k1.launches - k1_0
+    for k, v in clone.items():
+        if not bits_equal(v, s.rt.arena[k]):
+            raise AssertionError(
+                f"{what}: after the fault the arena's {k} differs from "
+                f"the fault-free per-shard replay (max abs "
+                f"{max_abs(v, s.rt.arena[k])})")
+    del clone, rounds
+    lane_views_ok(s)
+    return target, d_stats, oracle
+
+
 def read_phase(s: Service, wrappers):
     """Phase r, on phase s's runtime: the read tier over the shard lanes,
     a transient fault inside a fused fleet tick, and a lost shard.
@@ -1143,7 +1256,6 @@ def read_phase(s: Service, wrappers):
     s.eng.drain()
     reset_counters(wrappers)
     torch.cuda.reset_peak_memory_stats()
-    k1 = wrappers["agg_adam_multijob_fused"]
     rs = ReplicaSet(s.eng, n_replicas=2)
     rep = rs.replicas[0]
     eng, plan = s.eng, s.plan
@@ -1154,7 +1266,7 @@ def read_phase(s: Service, wrappers):
     # ---- r1: reads
     ticks = []
     s.push_all()
-    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    ticks.append(r_tick(s, wrappers, "phase r r1")[1:])
     held = {j: eng.pull(j, since_version=0) for j in s.rt.job_ids}
     rs.refresh()
     held_rep = {j: rep.pull(j, since_version=0) for j in s.rt.job_ids}
@@ -1165,7 +1277,7 @@ def read_phase(s: Service, wrappers):
                                  f"{j} differs from the engine's")
     pushed = min(s.rt.job_ids, key=lambda j: block_rows[j])
     s.push_all([pushed])
-    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    ticks.append(r_tick(s, wrappers, "phase r r1")[1:])
     check_diffs("r1 engine", lambda j, v: eng.pull(j, since_version=v),
                 held, pushed, block_rows)
     rs.refresh()
@@ -1173,7 +1285,7 @@ def read_phase(s: Service, wrappers):
                 held_rep, pushed, block_rows)
     del held, held_rep
     s.push_all()
-    ticks.append(r_tick(s, wrappers, "r1")[1:])
+    ticks.append(r_tick(s, wrappers, "phase r r1")[1:])
     check_served(s, rs, "r1")
     times = [t for t, _ in ticks]
     print(f"phase r r1 (reads, ReplicaSet x2): fleet ticks with the hub "
@@ -1189,41 +1301,7 @@ def read_phase(s: Service, wrappers):
           flush=True)
 
     # ---- r2: a transient fault inside a fused fleet tick
-    target = max(plan.shard_ids, key=lambda sid: len(
-        plan.shard_of(sid).job_ids))
-    stats0 = dataclasses.replace(eng.stats)
-    lane_rollbacks = eng._lanes[target].stats.n_rollbacks
-    replans = s.rt.n_replans
-    clone = {k: v.clone() for k, v in s.rt.arena.items()}
-    rounds = []
-    s.inj.fail_apply(target, at=2)
-    for _ in range(R_FAULT_ROUNDS):
-        s.push_all()
-        rounds.append(fleet_heads(s, at=-1))
-        r_drain(s, wrappers, "r2")
-    fired = s.inj.fire_counts().get("fail_apply", 0)
-    d_stats = {f: getattr(eng.stats, f) - getattr(stats0, f)
-               for f in ("n_fleet_fallbacks", "n_rollbacks", "n_replayed",
-                         "n_quarantines", "n_replans")}
-    if (fired != 1 or d_stats["n_fleet_fallbacks"] != 1
-            or eng._lanes[target].stats.n_rollbacks != lane_rollbacks + 1
-            or d_stats["n_quarantines"] or d_stats["n_replans"]
-            or s.rt.n_replans != replans or eng.quarantined_shards()):
-        raise AssertionError(f"phase r r2: fired={fired} {d_stats}; want "
-                             f"one fall-back, {target} rolled back once, "
-                             f"no quarantine and no replan")
-    k1_0 = k1.launches
-    for heads in rounds:
-        per_shard_on_clone(s, clone, heads)
-    oracle = k1.launches - k1_0
-    for k, v in clone.items():
-        if not bits_equal(v, s.rt.arena[k]):
-            raise AssertionError(
-                f"phase r r2: after the fault the arena's {k} differs from "
-                f"the fault-free per-shard replay (max abs "
-                f"{max_abs(v, s.rt.arena[k])})")
-    del clone, rounds
-    lane_views_ok(s)
+    target, d_stats, oracle = transient_fault(s, wrappers, "phase r r2")
     print(f"phase r r2 (fail_apply on {target} in round 2 of "
           f"{R_FAULT_ROUNDS}): {d_stats} the drained arena = the "
           f"fault-free per-shard replay bit_for_bit (per_shard_k1_launches"
@@ -1245,7 +1323,7 @@ def read_phase(s: Service, wrappers):
     s.inj.kill_shard(victim, at=1)
     s.push_all()
     for _ in range(2 * (eng.max_apply_retries + 1)):
-        r_tick(s, wrappers, "r3")
+        r_tick(s, wrappers, "phase r r3")
         if victim in eng.quarantined_shards():
             break
     else:
@@ -1262,7 +1340,7 @@ def read_phase(s: Service, wrappers):
     for _ in range(2):
         s.push_all(spared)
         while True:
-            applied, ms, _ = r_tick(s, wrappers, "r3 spared jobs")
+            applied, ms, _ = r_tick(s, wrappers, "phase r r3 spared jobs")
             if not applied:
                 break
             spared_ms.append(ms)
@@ -1291,7 +1369,7 @@ def read_phase(s: Service, wrappers):
             sum(not f.done() for f in futs.values()))
     old = s.plan
     report, replan_s, k2, (moved, touched) = sharded_transition(
-        s, "recovery", lambda: s.rt.recover_shard(victim), wrappers,
+        s, "phase r r3 recovery", lambda: s.rt.recover_shard(victim), wrappers,
         drain=False)
     got = (report.rolled_back_pushes, report.cancelled_pushes)
     if report.seeded_from != "snapshot" or got != want:
@@ -1337,6 +1415,310 @@ def read_phase(s: Service, wrappers):
     return counts
 
 
+# ------------------------- phase q: compressed pushes, leases, checkpoint
+Q_PEAK_GB = 50.0  # phase q's budget of device memory at peak
+Q_COMPRESSION = {"vgg19": "int8", "bert": "bf16", "awd-lm": "int8"}
+Q_LEASE_S = 2.0  # the engine's lease interval on phase q's manual clock
+Q_CKPT_DIR = ROOT / "build" / "phase_q_ckpt"  # git-ignored; removed after
+
+
+class ManualClock:
+    """The lease clock of phase q: time moves only when the phase sets
+    ``now``."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def ef_round_ms(s: Service, job: str):
+    """Device ms of one job's error-feedback rounds (``_ef_round`` on each
+    of its pieces: gather, add, quantize, dequantize, residual, scatter)
+    on a seeded gradient and a clone of each hosting shard's ``ef``,
+    CUDA events around back-to-back calls; summed over its pieces."""
+    from repro_torch.ps.runtime import _ef_round, _rows, _split_pieces
+
+    layout = s.plan.job_layout(job)
+    kind = s.rt._jobs[job]["step_opts"]["push_compression"]
+    total = 0.0
+    for sid, l, g in zip(layout.shard_ids, layout.layouts,
+                         _split_pieces(layout, s.grad(job))):
+        ef = s.rt.states[sid]["ef"].clone()
+        rows = None if l.covers_all else _rows(l, s.device)
+        total += time_ms(lambda: _ef_round(l, ef, g, kind, rows), s.device,
+                         reps=5, warmup=2, inner=3)
+        del ef
+    return total
+
+
+def ef_card_vs_cpu(s: Service, job: str):
+    """The card's ``ef_transform`` held against the CPU's, bit for bit, on
+    the job's first piece: a seeded gradient and the live gathered rows of
+    its hosting shard's ``ef`` (nonzero after the ticks), copied to the
+    CPU, where the tests hold ``ef_transform`` bit for bit against the
+    reference's eager round.  Returns (lanes compared, the rows' max
+    abs)."""
+    from repro_torch.ps.compression import ef_transform
+    from repro_torch.ps.runtime import _rows, _split_pieces
+
+    layout = s.plan.job_layout(job)
+    kind = s.rt._jobs[job]["step_opts"]["push_compression"]
+    sid, l = layout.shard_ids[0], layout.layouts[0]
+    g = _split_pieces(layout, s.grad(job))[0]
+    ef = s.rt.states[sid]["ef"]
+    rows = (ef if l.covers_all else
+            ef.view(-1, l.block)[_rows(l, s.device)].reshape(-1))
+    q, resid = ef_transform(g, rows, kind)
+    q_cpu, resid_cpu = ef_transform(g.cpu(), rows.cpu(), kind)
+    for what, card, cpu in (("q", q, q_cpu), ("residual", resid, resid_cpu)):
+        if not bits_equal(card.cpu(), cpu):
+            raise AssertionError(
+                f"phase q q1: the card's ef_transform ({job}, {kind}) "
+                f"differs from the CPU's in {what} (max abs "
+                f"{max_abs(card.cpu(), cpu)})")
+    peak = float(rows.abs().max())
+    if not peak > 0:
+        raise AssertionError(f"phase q q1: {job}'s ef rows on {sid} are all "
+                             f"zero after the ticks")
+    return g.numel(), peak
+
+
+def compressed_phase(device, wrappers, scale, s_tick_ms):
+    """Phase q: compressed pushes, leases and a checkpoint on a fresh
+    sharded fleet at the paper inventories (AlexNet plain, VGG19 int8,
+    BERT-base bf16 on 2 shards; the engine with a lease interval on a
+    manual clock).
+
+    q1: 4 fused fleet ticks, each one K1 launch, the last bit for bit
+    against the per-shard appliers on a clone of the arena, ef included;
+    each job's push alone prices the wire (int8 at most half of fp32,
+    bf16 half); AWD-LM arrives with int8 through a sharded replan (K2
+    moving flat/mu/nu/ef) held against the gather oracle; a
+    ``fail_apply`` inside a fused tick, the drained arena against the
+    per-shard replay on a clone, every lane's ef a view of the arena.
+    q2: AWD-LM goes silent with a push queued while the others push;
+    past its lease ``expire_leases()`` reclaims exactly it through a
+    replan held against the gather oracle, and its queued future raises
+    ``LeaseExpiredError``.  q3: ``save_checkpoint`` to a directory under
+    ``build/`` (always removed), 2 more ticks, ``restore_checkpoint``
+    into the live runtime: the arena equals the clone taken at the save
+    bit for bit, every lane a view; one more fused tick equals that tick
+    run on the clone by the per-shard appliers.  Returns the phase's
+    launch counts (the oracle's K1 launches taken out) and the service."""
+    from repro_torch.ps import elastic
+    from repro_torch.ps.faults import LeaseExpiredError
+
+    t_phase = time.perf_counter()
+    elastic.clear_plan_cache()
+    reset_counters(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    k1 = wrappers["agg_adam_multijob_fused"]
+    clock = ManualClock()
+    s = Service(device, scale, sharded=True, lease_interval=Q_LEASE_S,
+                clock=clock)
+    t0 = time.perf_counter()
+    for model in ("alexnet", "vgg19", "bert"):
+        s.add(model, Q_COMPRESSION.get(model))
+    sync(device)
+    if sorted(s.rt.arena) != ["ef", "flat", "mu", "nu"]:
+        raise AssertionError(f"phase q: the arena holds {sorted(s.rt.arena)}"
+                             f", want flat/mu/nu/ef")
+    lane_views_ok(s)
+    print(f"phase q set-up: jobs={list(s.rt.job_ids)} compression="
+          f"{ {j: Q_COMPRESSION.get(j) for j in s.rt.job_ids} } shards="
+          f"{s.rt.n_shards} lanes_per_shard="
+          f"{[sp.total_len for sp in s.plan.shards]} arena_leaves="
+          f"{sorted(s.rt.arena)} seconds={time.perf_counter() - t0:.2f} "
+          f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+
+    # ---- q1: compressed pushes through fused fleet ticks
+    times, enqueue, mallocs, oracle = fleet_ticks(
+        s, 4, wrappers, oracle_last=True, phase="phase q q1")
+    single = {}
+    for j in s.rt.job_ids:
+        st0 = dataclasses.replace(s.eng.stats)
+        s.push_all([j])
+        raw = s.eng.stats.push_bytes_raw - st0.push_bytes_raw
+        wire = s.eng.stats.push_bytes_wire - st0.push_bytes_wire
+        ms = [r_tick(s, wrappers, "phase q q1")[1]]
+        for _ in range(2):  # the first tick of a pattern builds its applier
+            s.push_all([j])
+            ms.append(r_tick(s, wrappers, "phase q q1")[1])
+        single[j] = (statistics.median(ms[1:]), wire / raw)
+        kind = Q_COMPRESSION.get(j)
+        if (kind == "int8" and not wire <= 0.5 * raw) or (
+                kind == "bf16" and wire != 0.5 * raw) or (
+                kind is None and wire != raw):
+            raise AssertionError(f"phase q q1: {j} ({kind}) pushed {raw} B "
+                                 f"of fp32 as {wire} B on the wire")
+    ef_ms = {j: ef_round_ms(s, j) for j in s.rt.job_ids
+             if Q_COMPRESSION.get(j)}
+    ef_cpu = {j: ef_card_vs_cpu(s, j) for j in ef_ms}
+    print(f"phase q q1 (3 jobs, 2 compressed): fleet ticks ms="
+          f"{[round(t, 3) for t in times]} median="
+          f"{statistics.median(times):.3f} (phase s, the same jobs "
+          f"uncompressed: {statistics.median(s_tick_ms):.3f}) host_enqueue_ms="
+          f"{[round(t, 3) for t in enqueue]} cuda_mallocs={mallocs}; "
+          f"fused_vs_per_shard=bit_for_bit (ef included) "
+          f"per_shard_k1_launches={oracle}; one job a tick: "
+          f"{ {j: (round(ms, 3), round(r, 4)) for j, (ms, r) in single.items()} }"
+          f" (median ms of the 2nd and 3rd tick, wire/fp32 bytes); "
+          f"ef_round_ms="
+          f"{ {j: round(v, 3) for j, v in ef_ms.items()} } ef_transform "
+          f"card=cpu bit_for_bit on (lanes, ef max abs) "
+          f"{ {j: (n, f'{m:.3e}') for j, (n, m) in ef_cpu.items()} } peak_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+
+    _, replan_s, k2, (moved, touched) = sharded_transition(
+        s, "phase q arrival",
+        lambda: s.add("awd-lm", Q_COMPRESSION["awd-lm"]), wrappers)
+    if min(k2) < 1 or sorted(s.rt.arena) != ["ef", "flat", "mu", "nu"]:
+        raise AssertionError(f"phase q arrival: K2 launches {k2}, arena "
+                             f"{sorted(s.rt.arena)}")
+    lane_views_ok(s)
+    times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q1")
+    print(f"phase q q1 (AWD-LM arrives, int8): replan_s={replan_s:.2f} "
+          f"shards={s.rt.n_shards} moved_elements={moved} touched="
+          f"{list(touched)} k2_launches(stage+scatter)={k2[0]}+{k2[1]} over "
+          f"{len(s.rt.arena)} leaves, gather_oracle=bit_for_bit "
+          f"(flat/mu/nu/ef); fleet ticks ms={[round(t, 3) for t in times]}",
+          flush=True)
+    for in_k1, how in ((False, "fail_apply on {}"),
+                       (True, "K1 raising after the EF rounds, {} among")):
+        target, d_stats, n = transient_fault(s, wrappers, "phase q q1 fault",
+                                             in_k1=in_k1)
+        oracle += n
+        print(f"phase q q1 ({how.format(target)} in round 2 of "
+              f"{R_FAULT_ROUNDS}): {d_stats} the drained arena = the "
+              f"fault-free per-shard replay bit_for_bit (ef included, "
+              f"per_shard_k1_launches={n}), every lane's ef a view of the "
+              f"arena", flush=True)
+    elastic.clear_plan_cache()
+
+    # ---- q2: a silent trainer's lease expires
+    silent = "awd-lm"
+    others = [j for j in s.rt.job_ids if j != silent]
+    s.eng.drain()
+    clock.now = 100.0
+    fut = s.eng.submit_packed(silent, s.grad(silent))
+    clock.now += Q_LEASE_S / 2
+    s.push_all(others)
+    sync(device)
+    s.eng.tick(only=others)
+    if s.eng.outstanding(silent) != 1 or any(s.eng.outstanding(j)
+                                             for j in others):
+        raise AssertionError("phase q q2: the queues are not as set up")
+    clock.now += Q_LEASE_S * 0.75  # past the silent job's lease only
+    old = s.plan
+    expired, replan_s, k2, (moved, touched) = sharded_transition(
+        s, "phase q q2 reclaim", s.eng.expire_leases, wrappers, drain=False,
+        jobs=others)
+    if expired != (silent,) or s.eng.stats.n_lease_expirations != 1 or (
+            silent in s.rt.job_ids):
+        raise AssertionError(f"phase q q2: expired {expired}, "
+                             f"{s.eng.stats.n_lease_expirations} "
+                             f"expirations; want ({silent!r},) and 1")
+    try:
+        fut.result(timeout=1.0)
+    except LeaseExpiredError as exc:
+        if exc.job_id != silent:
+            raise
+    else:
+        raise AssertionError("phase q q2: the silent job's queued push "
+                             "did not raise LeaseExpiredError")
+    relaid = [sid for sid in s.plan.shard_ids if sid in old.shard_ids
+              and elastic.compile_migration_delta(
+                  old.shard_of(sid), s.plan.shard_of(sid)
+              ).touched_blocks.size]
+    if k2 != (len(relaid), len(relaid)):
+        raise AssertionError(f"phase q q2: K2 launches {k2}; surviving "
+                             f"shards with moved blocks: {relaid}")
+    lane_views_ok(s)
+    times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q2")
+    print(f"phase q q2 (lease {Q_LEASE_S} s on a manual clock; {silent} "
+          f"silent with a push queued): expired={list(expired)} "
+          f"n_lease_expirations=1, its future raised LeaseExpiredError; "
+          f"reclaim replan_s={replan_s:.2f} shards={s.rt.n_shards} "
+          f"moved_elements={moved} touched={list(touched)} "
+          f"k2_launches(stage+scatter)={k2[0]}+{k2[1]} "
+          f"gather_oracle=bit_for_bit; then fleet ticks ms="
+          f"{[round(t, 3) for t in times]}", flush=True)
+    elastic.clear_plan_cache()
+
+    # ---- q3: checkpoint the fleet, tick on, restore into the arena
+    s.eng.drain()
+    need = sum(v.numel() * v.element_size() for v in s.rt.arena.values())
+    Q_CKPT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(Q_CKPT_DIR.parent).free
+    if free < 2 * need:
+        raise AssertionError(f"phase q q3: {free / 1e9:.1f} GB free under "
+                             f"{Q_CKPT_DIR.parent}, the checkpoint needs "
+                             f"{need / 1e9:.1f} GB (twice that required)")
+    try:
+        saved = {k: v.clone() for k, v in s.rt.arena.items()}
+        counts_at_save = dict(s.rt.counts)
+        sync(device)
+        t0 = time.perf_counter()
+        path = s.rt.save_checkpoint(Q_CKPT_DIR, 1)
+        save_s = time.perf_counter() - t0
+        written = sum(f.stat().st_size for f in path.iterdir())
+        for _ in range(2):
+            s.push_all()
+            r_tick(s, wrappers, "phase q q3")
+        t0 = time.perf_counter()
+        s.rt.restore_checkpoint(Q_CKPT_DIR, 1)
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        for k, v in saved.items():
+            if not bits_equal(s.rt.arena[k], v):
+                raise AssertionError(
+                    f"phase q q3: after the restore the arena's {k} differs "
+                    f"from the clone taken at the save (max abs "
+                    f"{max_abs(s.rt.arena[k], v)})")
+        lane_views_ok(s)
+        if s.rt.counts != counts_at_save:
+            raise AssertionError(f"phase q q3: counts {s.rt.counts}, saved "
+                                 f"{counts_at_save}")
+        s.push_all()
+        heads = fleet_heads(s)
+        _, tick_ms, _ = r_tick(s, wrappers, "phase q q3")
+        k1_0 = k1.launches
+        per_shard_on_clone(s, saved, heads)
+        oracle += k1.launches - k1_0
+        for k, v in saved.items():
+            if not bits_equal(s.rt.arena[k], v):
+                raise AssertionError(
+                    f"phase q q3: the tick after the restore and the "
+                    f"per-shard appliers on the saved clone differ in {k}")
+        del saved, heads
+    finally:
+        shutil.rmtree(Q_CKPT_DIR, ignore_errors=True)
+    print(f"phase q q3 (checkpoint of {len(s.rt.arena)} leaves x "
+          f"{s.plan.concat_view()[1]} lanes): bytes_written={written} "
+          f"save_s={save_s:.2f} restore_s={restore_s:.2f} verify=on "
+          f"(SHA-256 written and checked); restored arena = the clone at "
+          f"the save bit_for_bit, every lane a view; the next fused tick "
+          f"({tick_ms:.3f} ms) = the per-shard appliers on the clone "
+          f"bit_for_bit; free_disk_gb={free / 1e9:.1f}", flush=True)
+
+    counts = read_counters(wrappers)
+    counts["agg_adam_multijob_fused"] -= oracle
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb > Q_PEAK_GB:
+        raise AssertionError(f"phase q: {peak_gb:.2f} GB at peak, over its "
+                             f"{Q_PEAK_GB} GB budget")
+    print(f"phase q (compressed pushes, leases, checkpoint): counters="
+          f"{counts} peak_gb={peak_gb:.2f} engine="
+          f"{dataclasses.asdict(s.eng.stats)} seconds="
+          f"{time.perf_counter() - t_phase:.1f} host_maxrss_gb="
+          f"{host_rss_gb():.2f}", flush=True)
+    elastic.clear_plan_cache()
+    return counts, s
+
+
 # -------------------------------------------------------- the MLP phase
 def block_step_vs_masked(rt, job, batch) -> int:
     """One ``ServiceRuntime.step`` of ``job`` (kernel K3) held against the
@@ -1359,14 +1741,17 @@ def block_step_vs_masked(rt, job, batch) -> int:
 
 def mlp_phase(device, wrappers):
     """Two MLP jobs train through engine.step and ServiceRuntime.step
-    (block kernel) on the device; losses must be finite and fall."""
+    (block kernel) on the device; losses must be finite and fall.  Then a
+    compressed MLP job (int8) in two twin runtimes, one stepped through
+    ``engine.step`` (K1), one through ``ServiceRuntime.step`` (K3), on the
+    same batches: their flat/mu/nu/ef must be equal bit for bit."""
     from repro_torch.core import ParameterService
     from repro_torch.ps.service_runtime import ServiceRuntime
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
 
-    def init(d_in):
+    def init(d_in, gen=gen):
         r = lambda *s: torch.randn(*s, generator=gen, device=device)
         z = lambda n: torch.zeros(n, device=device)
         return {"w1": r(d_in, 64) / 4.0, "b1": z(64), "w2": r(64, 64) / 8.0,
@@ -1404,6 +1789,37 @@ def mlp_phase(device, wrappers):
     sync(device)
     counts = read_counters(wrappers)
     ulp = block_step_vs_masked(rt, "mlp", batch())
+
+    # The compressed job: engine.step (K1) == ServiceRuntime.step (K3).
+    batches = [batch() for _ in range(6)]
+    twins = []
+    for engine in (True, False):
+        g_q = torch.Generator(device=device)
+        g_q.manual_seed(2)
+        rt_q = ServiceRuntime(ParameterService(
+            total_budget=16, n_clusters=1, plan_pad_to=128), device=device)
+        eng_q = rt_q.attach_engine(max_staleness=0) if engine else None
+        params = init(16, g_q)
+        rt_q.add_job("mlp_q", params, loss, required_servers=2, lr=3e-3,
+                     agg_throughput=sum(4 * v.numel()
+                                        for v in params.values()) / 0.45,
+                     push_compression="int8")
+        for b in batches:
+            (eng_q.step if engine else rt_q.step)("mlp_q", b)
+        if engine:
+            eng_q.drain()
+        twins.append(rt_q)
+    for k in ("flat", "mu", "nu", "ef"):
+        if not bits_equal(twins[0].state[k], twins[1].state[k]):
+            raise AssertionError(
+                f"phase d: the compressed MLP job's {k} through engine.step "
+                f"differs from ServiceRuntime.step's (max abs "
+                f"{max_abs(twins[0].state[k], twins[1].state[k])})")
+    if not float(twins[0].state["ef"].abs().max()) > 0:
+        raise AssertionError("phase d: the compressed job left ef zero")
+    del twins
+    sync(device)
+    counts = read_counters(wrappers)
     for j, ls in losses.items():
         if not all(np.isfinite(ls)) or not np.mean(ls[-5:]) < np.mean(ls[:5]):
             raise AssertionError(f"MLP job {j}: losses not finite and "
@@ -1414,7 +1830,9 @@ def mlp_phase(device, wrappers):
           f"first={ {j: round(l[0], 5) for j, l in losses.items()} } "
           f"last={ {j: round(l[-1], 5) for j, l in losses.items()} } "
           f"direct_last={direct[-1]:.5f} counters={counts} "
-          f"block_step_vs_plain_max_ulp={ulp}", flush=True)
+          f"block_step_vs_plain_max_ulp={ulp}; compressed job mlp_q "
+          f"(int8) x{len(batches)}: engine.step = ServiceRuntime.step "
+          f"bit_for_bit (flat/mu/nu/ef)", flush=True)
     return counts
 
 
@@ -2555,14 +2973,26 @@ def main() -> int:
     counts = read_phase(s, wrappers)
     _require(counts, ("agg_adam_multijob_fused",), "r")
     add_totals(counts)
+    s_tick_ms = s.fleet_tick_ms
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase q: compressed pushes, a lease reclaim and a checkpoint on
+    # a fresh sharded fleet; then the leak check of phases s, r and q
+    counts, s = compressed_phase(device, wrappers, scale, s_tick_ms)
+    _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
+                      "relayout_scatter"), "q")
+    add_totals(counts)
     del s
     gc.collect()
     torch.cuda.empty_cache()
     leaked = torch.cuda.memory_allocated() - baseline
     if leaked > S_LEAK_BYTES:
-        raise AssertionError(f"phases s and r left {leaked / 2**20:.1f} MiB "
-                             f"allocated (budget {S_LEAK_BYTES >> 20} MiB)")
-    print(f"phases s and r leak check: {leaked} bytes left allocated "
+        raise AssertionError(f"phases s, r and q left {leaked / 2**20:.1f} "
+                             f"MiB allocated (budget {S_LEAK_BYTES >> 20} "
+                             f"MiB)")
+    print(f"phases s, r and q leak check: {leaked} bytes left allocated "
           f"(budget {S_LEAK_BYTES})", flush=True)
 
     # ---- phase d: real models on the device

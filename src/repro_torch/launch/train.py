@@ -3,17 +3,18 @@ training on the card.
 
 Synthetic batches -> the family's train step with the reference's
 optimizer (lm: ``adam(3e-4)``; dlrm: ``adagrad(0.01)``; sasrec and dien:
-``adam(1e-3)``) -> loss and throughput lines.  Weights come from a
-``torch.Generator`` on the device seeded with 0.  Runs on ``cuda:0``
-unless ``--device cpu``.
+``adam(1e-3)``) -> CheckpointManager (background saves every
+``--ckpt-every`` steps; a relaunch resumes from the latest step) -> loss
+and throughput lines.  Weights come from a ``torch.Generator`` on the
+device seeded with 0.  Runs on ``cuda:0`` unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-      --steps 20 --batch 8 --seq 512
+      --steps 20 --batch 8 --seq 512 [--ckpt-dir DIR]
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
       --steps 10 --batch 65536
 
 The lm and recsys families run; gnn archs are not ported yet (ROADMAP.md,
-Queue 1 item 15), nor is checkpointing (``--ckpt-dir``, item 11).
+Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..configs import registry
 from ..data import dien_batch, lm_batch, recsys_batch, sasrec_batch
 from ..device import resolve_device
@@ -106,22 +108,33 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 11)")
 
     init_state, step, batch_fn, tokens = build(
         args.arch, args.smoke, args.batch, args.seq, args.device)
+    start = 0
     state = init_state()
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every)
+        # The fresh state gives the restore its structure and shapes.
+        found, restored = mgr.restore_latest(
+            state, device=resolve_device(args.device))
+        if found is not None:
+            start, state = found + 1, restored
+            print(f"[train] restored checkpoint step {found}", flush=True)
     t0 = time.time()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         state, metrics = step(state, batch_fn())
+        if mgr is not None:
+            mgr.maybe_save(i, state)
         if i % args.log_every == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])
             dt = time.time() - t0
-            rate = tokens * (i + 1) / max(dt, 1e-9)
+            rate = tokens * (i - start + 1) / max(dt, 1e-9)
             print(f"[train] step={i} loss={loss:.4f} items/s={rate:,.0f}",
                   flush=True)
+    if mgr is not None:
+        mgr.wait()
     print("[train] done", flush=True)
 
 

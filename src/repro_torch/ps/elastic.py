@@ -11,7 +11,8 @@ a state from one FlatPlan to another:
     The shipped O(moved-bytes) path: a :class:`MigrationDelta` compiled
     per plan pair names the moved runs and vacated lanes, and the
     relayout kernels (``repro_torch.kernels.relayout``) stage and scatter
-    only the touched blocks of flat/mu/nu in one launch each.  Bit-exact
+    only the touched blocks of flat/mu/nu (and ``ef``) in one launch each.
+    Bit-exact
     with the oracle on valid states (non-payload lanes zero).  A buffer
     that keeps its length is updated IN PLACE.
 
@@ -466,7 +467,9 @@ def migrate_flat_state_delta(state: Dict[str, Any], old: FlatPlan,
 
 
 # ------------------------------------------------------- sharded transitions
-LEAVES = ("flat", "mu", "nu")  # the 1-D leaves of a shard space's state
+# The 1-D leaves of every shard space's state; a fleet with compressed
+# jobs adds the error-feedback buffer "ef".
+LEAVES = ("flat", "mu", "nu")
 
 
 def sharded_transition_summary(old: ShardedPlan, new: ShardedPlan):
@@ -551,8 +554,8 @@ def migrate_sharded_state(
     out: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     fault_injector=None,
 ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int, Tuple[str, ...]]:
-    """Re-lay per-shard states (``agg_id`` -> flat/mu/nu of the shard's
-    ``total_len``) onto a new ShardedPlan:
+    """Re-lay per-shard states (``agg_id`` -> flat/mu/nu[/ef] of the
+    shard's ``total_len``) onto a new ShardedPlan:
 
       * every SURVIVING shard (same ``agg_id`` in both plans) runs its own
         :class:`MigrationDelta` through K2, O(its moved bytes) on top of
@@ -564,7 +567,11 @@ def migrate_sharded_state(
 
     ``out`` maps each new shard id to its zeroed destination state (the
     runtime passes views of its next fleet arena); without it every shard
-    gets fresh zero buffers.  The input ``states`` are only read, so a
+    gets fresh zero buffers: a surviving shard's own leaves, a joining
+    shard flat/mu/nu, and ``ef`` when any input state has one.  A
+    destination leaf is filled from the sources that have it and stays
+    zero where one lacks it, as the reference leaves a leaf absent on a
+    source shard.  The input ``states`` are only read, so a
     failure at any point leaves the caller's states whole; nothing
     commits until the caller installs the result.  A ``fault_injector``
     is asked before anything moves (``on_migration``) and after each
@@ -576,20 +583,24 @@ def migrate_sharded_state(
     if fault_injector is not None:
         fault_injector.on_migration(desc)
     device = next(iter(states.values()))["flat"].device
+    joining = LEAVES + (("ef",) if any(
+        "ef" in st for st in states.values()) else ())
     moved = 0
     touched: set = set()
     new_states: Dict[str, Dict[str, torch.Tensor]] = {}
     old_ids = set(old.shard_ids)
     old_by = old.by_skey
     for sid, sp in zip(new.shard_ids, new.shards):
+        prev = states.get(sid) if sid in old_ids else None
         st = (out[sid] if out is not None else
               {k: torch.zeros(sp.total_len, dtype=torch.float32,
-                              device=device) for k in LEAVES})
-        prev = states.get(sid) if sid in old_ids else None
+                              device=device)
+               for k in (tuple(prev) if prev is not None else joining)})
         if prev is not None:
             delta = compile_migration_delta(old.shard_of(sid), sp)
-            _relayout_into([prev[k] for k in LEAVES],
-                           [st[k] for k in LEAVES], delta)
+            keys = [k for k in st if k in prev]
+            _relayout_into([prev[k] for k in keys], [st[k] for k in keys],
+                           delta)
             moved += delta.moved_elements
             touched.update(delta.touched_jobs)
         # Cross-shard arrivals: their destination lanes are zero after
@@ -606,7 +617,9 @@ def migrate_sharded_state(
         if arrivals:
             idx = _run_index([(seg.offset, seg.size)
                               for seg, _, _ in arrivals], device)
-            for k in LEAVES:
+            for k in st:
+                if any(k not in states[psid] for _, psid, _ in arrivals):
+                    continue  # absent on a source shard: stays zero
                 vals = torch.cat([
                     states[psid][k][pseg.offset : pseg.offset + pseg.size]
                     for _, psid, pseg in arrivals])

@@ -41,6 +41,20 @@ so the fleet tick hands K1 the arena with block tables rebased by each
 shard's offset, and no state is concatenated or sliced back.  Its
 lanes roll back, replay and quarantine one by one, and a failed fleet
 launch falls back to per-shard launches of the same kernel.
+
+Compressed pushes (``push_compression="bf16"|"int8"`` on a job): each
+applier runs one error-feedback round (``runtime._ef_round``) on every
+compressed job's packed piece against its owned rows of the state's
+``ef`` buffer before the K1 launch, so the compressed trajectory is the
+block step's bit for bit.  ``ef`` rides snapshots, rollback and
+migrations with flat/mu/nu; on the sharded fleet it is a fourth arena
+leaf that K1 never reads.  ``TickStats.push_bytes_wire`` prices each push
+with ``compression.wire_bytes``.
+
+Leases: with ``lease_interval`` every push and pull renews the job's
+lease (on an injectable ``clock``), and ``expire_leases()`` reclaims the
+jobs whose trainers went silent through ``runtime.remove_job``, the
+replan path; their queued futures raise :class:`LeaseExpiredError`.
 """
 
 from __future__ import annotations
@@ -55,14 +69,22 @@ import torch
 
 from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
-from .faults import HEALTHY, QUARANTINED, EngineQuarantinedError, RetryPolicy
+from .compression import wire_bytes
+from .faults import (
+    HEALTHY,
+    QUARANTINED,
+    EngineQuarantinedError,
+    LeaseExpiredError,
+    RetryPolicy,
+)
 from .plan import FlatPlan
 from .runtime import (
+    _ef_round,
     _gather_owned,
     _gather_packed,
     _layout_rows,
-    _not_in_slice,
     _pack_slots,
+    _rows,
     _split_pieces,
     _unpack_slots,
 )
@@ -79,7 +101,7 @@ class PushFuture:
     rollback window) keeps its step but reports ``rolled_back``."""
 
     __slots__ = ("job_id", "_engine", "_done", "_step", "_remaining",
-                 "_cancelled", "_rolled_back")
+                 "_cancelled", "_cancel_exc", "_rolled_back")
 
     def __init__(self, job_id: str, engine, parts: int = 1):
         self.job_id = job_id
@@ -90,6 +112,7 @@ class PushFuture:
         # shard; the future resolves when the last piece applies.
         self._remaining = int(parts)
         self._cancelled = None  # str reason once cancelled
+        self._cancel_exc = None  # contextual exception behind the cancel
         self._rolled_back = False  # applied, then lost with a dead shard
 
     def done(self) -> bool:
@@ -111,12 +134,16 @@ class PushFuture:
         :class:`EngineQuarantinedError` (or a ``RuntimeError`` when the
         piece is gone); with ``timeout`` (seconds, wall clock) it waits
         out the deadline first and then raises that quarantine error or
-        ``TimeoutError``.  The flat engine's single lane raises its
+        ``TimeoutError``.  A cancelled push raises at once: its stored
+        error (a :class:`LeaseExpiredError` when its job was reclaimed),
+        or a ``RuntimeError``.  The flat engine's single lane raises its
         quarantine out of ``tick()`` itself."""
         deadline = (None if timeout is None
                     else time.monotonic() + float(timeout))
         while not self._done:
             if self._cancelled is not None:
+                if self._cancel_exc is not None:
+                    raise self._cancel_exc
                 raise RuntimeError(
                     f"push for job {self.job_id!r} will never apply: "
                     f"{self._cancelled}")
@@ -158,9 +185,13 @@ class PushFuture:
         if not self._done:
             self._remaining += 1
 
-    def _cancel(self, reason: str) -> None:
+    def _cancel(self, reason: str,
+                exc: Optional[BaseException] = None) -> None:
+        """Cancel, with an optional exception for ``result()`` to raise.
+        The FIRST cancellation wins, its context kept."""
         if not self._done and self._cancelled is None:
             self._cancelled = reason
+            self._cancel_exc = exc
 
 
 @dataclass
@@ -183,9 +214,11 @@ class TickStats:
     n_replayed: int = 0  # applied pushes re-queued for replay by rollbacks
     n_quarantines: int = 0  # lanes that exhausted retries and stopped
     n_fleet_fallbacks: int = 0  # failed fleet launches replayed per shard
-    n_lease_expirations: int = 0  # (leases, not ported yet)
+    n_lease_expirations: int = 0  # jobs reclaimed by expire_leases
+    # Push bytes are counted at submit time: fp32 4 B a lane, and on the
+    # wire after each job's compression (``compression.wire_bytes``).
     push_bytes_raw: int = 0  # fp32 bytes of every submitted push
-    push_bytes_wire: int = 0  # same pushes on the wire (fp32: equal)
+    push_bytes_wire: int = 0  # same pushes after each job's compression
     n_full_pulls: int = 0  # whole-slice pulls (incl. diff-pull fallbacks)
     n_diff_pulls: int = 0  # versioned pulls that shipped changed blocks only
     pull_bytes_wire: int = 0  # pull payload bytes actually shipped
@@ -311,7 +344,77 @@ def _fused_state_update(state, gs, counts, *, block, block_idx, job_slot,
     return state
 
 
-class ServiceTickEngine:
+def _compressed_entries(layouts, infos, device):
+    """(entry index, kind, layout, owned rows on ``device``) of every
+    compressed job among an applier's entries."""
+    return [(i, kind, l, None if l.covers_all else _rows(l, device))
+            for i, (l, info) in enumerate(zip(layouts, infos))
+            if (kind := info["step_opts"].get("push_compression"))]
+
+
+def _ef_rounds(gs, compressed, ef_of):
+    """The gradients with each compressed entry's replaced by its
+    error-feedback round against ``ef_of(entry index)`` (whose owned rows
+    take the residual in place).  The queued gradients are only read, so
+    a replay after a rollback compresses the same pushes again."""
+    gs = list(gs)
+    for i, kind, layout, rows in compressed:
+        gs[i] = _ef_round(layout, ef_of(i), gs[i], kind, rows)
+    return tuple(gs)
+
+
+class _Leases:
+    """Job leases, the same in both engines: ``lease_interval`` (None:
+    off) on a clock (``time.monotonic`` unless injected); every push and
+    pull renews the job's deadline."""
+
+    def _init_leases(self, lease_interval, clock) -> None:
+        if lease_interval is not None and lease_interval <= 0:
+            raise ValueError(f"lease_interval must be > 0 (None disables "
+                             f"leases), got {lease_interval}")
+        self.lease_interval = (None if lease_interval is None
+                               else float(lease_interval))
+        self._clock = clock if clock is not None else time.monotonic
+        self._leases: Dict[str, float] = {}  # job -> expiry deadline
+
+    def _renew_lease(self, job_id: str) -> None:
+        if self.lease_interval is not None:
+            self._leases[job_id] = self._clock() + self.lease_interval
+
+    def lease_deadline(self, job_id: str) -> Optional[float]:
+        """The job's current lease expiry (None: leases off, or no contact
+        yet)."""
+        return self._leases.get(job_id)
+
+    def _expire(self, queues_of, fut_of) -> Tuple[str, ...]:
+        """``expire_leases`` over the job's queues (``queues_of(job)``, one
+        per lane), ``fut_of(entry)`` a queued entry's future."""
+        if self.lease_interval is None:
+            return ()
+        now = self._clock()
+        expired = tuple(sorted(j for j, deadline in self._leases.items()
+                               if deadline <= now and j in self.runtime._jobs))
+        for job_id in expired:
+            err = LeaseExpiredError(job_id, self._leases[job_id], now)
+            for q in queues_of(job_id):
+                if q:
+                    for entry in q:
+                        if fut_of(entry) is not None:
+                            fut_of(entry)._cancel(str(err), exc=err)
+                    q.clear()
+            self._leases.pop(job_id, None)
+            self.stats.n_lease_expirations += 1
+            try:
+                self.runtime.remove_job(job_id)
+            except Exception:
+                # The reclaim's replan failed: re-arm the lease so the
+                # next sweep retries instead of leaking the job.
+                self._leases[job_id] = now + self.lease_interval
+                raise
+        return expired
+
+
+class ServiceTickEngine(_Leases):
     """Batched executor for one :class:`ServiceRuntime`'s shared state.
 
     Created via :meth:`ServiceRuntime.attach_engine`.  The engine owns the
@@ -326,15 +429,14 @@ class ServiceTickEngine:
                  queue_capacity: Optional[int] = None,
                  min_batch_jobs: int = 3, snapshot_interval: int = 8,
                  max_apply_retries: int = 1, fault_injector=None,
-                 retry_policy=None, lease_interval: Optional[float] = None):
+                 retry_policy=None, lease_interval: Optional[float] = None,
+                 clock=None):
         if max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
         if snapshot_interval < 0:
             raise ValueError(
                 f"snapshot_interval must be >= 0 (0 disables rollback "
                 f"recovery), got {snapshot_interval}")
-        if lease_interval is not None:
-            raise _not_in_slice("leases (lease_interval)", "9")
         self.runtime = runtime
         self.max_staleness = int(max_staleness)
         self.queue_capacity = (self.max_staleness + 1 if queue_capacity is None
@@ -350,6 +452,7 @@ class ServiceTickEngine:
         self.retry_policy = retry_policy
         self.max_apply_retries = int(retry_policy.max_retries)
         self.fault_injector = fault_injector
+        self._init_leases(lease_interval, clock)
         self.stats = TickStats()
         self.health = HEALTHY
         self.quarantine_error: Optional[EngineQuarantinedError] = None
@@ -384,17 +487,32 @@ class ServiceTickEngine:
         return self.runtime.plan
 
     def _queue(self, job_id: str) -> deque:
-        if job_id not in self.runtime._jobs:
+        info = self.runtime._jobs.get(job_id)
+        if info is None:
             raise ValueError(f"unknown job {job_id!r}: not registered with "
                              f"the runtime (have {sorted(self.runtime._jobs)})")
         if job_id not in self._counts:
             self._counts[job_id] = int(self.runtime.state["counts"][job_id])
+        self._renew_lease(job_id)
         return self._queues.setdefault(job_id, deque())
 
     def outstanding(self, job_id: str) -> int:
         """Pushes submitted by the job but not yet applied by a tick."""
         q = self._queues.get(job_id)
         return len(q) if q else 0
+
+    def expire_leases(self) -> Tuple[str, ...]:
+        """Reclaim every job whose lease has lapsed; returns their ids.
+
+        Every push and pull renews the job's lease, so only a trainer that
+        was silent for a whole ``lease_interval`` expires.  Its queued
+        pushes are cancelled with a :class:`LeaseExpiredError` (held
+        futures raise it), then the job leaves through
+        ``runtime.remove_job``, the replan path, so its space frees.  If
+        that replan aborts, the lease is re-armed one interval out and
+        the error raised; the next call retries."""
+        return self._expire(lambda j: [self._queues.get(j)],
+                            lambda entry: entry[1])
 
     def quiesce_for_replan(self, touched) -> int:
         """Drain ONLY the touched jobs' queues ahead of a migration: their
@@ -459,6 +577,7 @@ class ServiceTickEngine:
         self._snapshot_log = [e for e in self._snapshot_log
                               if e[0] != job_id]
         self._counts.pop(job_id, None)
+        self._leases.pop(job_id, None)
         self._rows.pop(job_id, None)
         self._appliers = {k: v for k, v in self._appliers.items()
                           if job_id not in k}
@@ -586,9 +705,11 @@ class ServiceTickEngine:
 
     def _enqueue(self, q: deque, job_id: str, packed) -> PushFuture:
         fut = PushFuture(job_id, self)
+        # The bytes are spent even when the injector drops the push.
         n = int(packed.numel())
+        kind = self.runtime._jobs[job_id]["step_opts"].get("push_compression")
         self.stats.push_bytes_raw += 4 * n
-        self.stats.push_bytes_wire += 4 * n
+        self.stats.push_bytes_wire += wire_bytes(n, kind)
         action = ("deliver" if self.fault_injector is None
                   else self.fault_injector.on_push(job_id, None))
         if action != "drop":
@@ -777,7 +898,9 @@ class ServiceTickEngine:
     def _build_applier(self, job_ids: Tuple[str, ...]) -> Callable:
         """The batched apply for one combination of pending jobs: its
         block table and job-slot map go to the device once, and each call
-        is ONE launch of kernel K1 writing flat/mu/nu in place."""
+        is ONE launch of kernel K1 writing flat/mu/nu in place, after one
+        error-feedback round per compressed job (``_ef_round`` on its
+        owned rows of ``ef``, the block step's function)."""
         plan = self.plan
         layouts = [plan.job_layout(j) for j in job_ids]
         infos = [self.runtime._jobs[j] for j in job_ids]
@@ -786,9 +909,12 @@ class ServiceTickEngine:
         block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
                                                  self.runtime.device)
         block = plan.block_align
+        compressed = _compressed_entries(layouts, infos, self.runtime.device)
 
         def apply(state, gs):
             counts = [state["counts"][j] + 1 for j in job_ids]
+            if compressed:
+                gs = _ef_rounds(gs, compressed, lambda i: state["ef"])
             state = _fused_state_update(
                 state, gs, counts, block=block, block_idx=block_idx_t,
                 job_slot=job_slot_t, job_sizes=job_sizes, hps=hps)
@@ -825,7 +951,7 @@ class _ShardLane:
         self.job_versions: Dict[str, int] = {}  # job -> last version stamp
 
 
-class ShardedTickEngine:
+class ShardedTickEngine(_Leases):
     """Per-shard batched executor for one :class:`ShardedServiceRuntime`.
 
     Created via :meth:`ShardedServiceRuntime.attach_engine`.  One
@@ -860,8 +986,12 @@ class ShardedTickEngine:
     every participating lane rolls back and ticks alone with its own
     launches of the same kernel (``n_fleet_fallbacks``).  K1 writes the
     arena in place, so with ``snapshot_interval=0`` a failed lane may be
-    half-written and is quarantined at once.  Leases (item 9) are not
-    ported yet.
+    half-written and is quarantined at once.
+
+    A compressed job's piece takes one error-feedback round against ITS
+    shard's ``ef`` view of the arena before the launch, on the fleet and
+    the per-shard path alike.  Leases are the flat engine's, with the
+    job's queued pieces cancelled on every lane.
     """
 
     MAX_APPLIERS = 32  # appliers per lane (one per pending-job subset)
@@ -871,7 +1001,7 @@ class ShardedTickEngine:
                  min_batch_jobs: int = 3, fleet_tick: str = "fused",
                  snapshot_interval: int = 8, max_apply_retries: int = 1,
                  fault_injector=None, retry_policy=None,
-                 lease_interval: Optional[float] = None):
+                 lease_interval: Optional[float] = None, clock=None):
         if max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
         if fleet_tick not in ("fused", "per_shard"):
@@ -881,8 +1011,6 @@ class ShardedTickEngine:
             raise ValueError(
                 f"snapshot_interval must be >= 0 (0 disables rollback "
                 f"recovery), got {snapshot_interval}")
-        if lease_interval is not None:
-            raise _not_in_slice("leases (lease_interval)", "9")
         self.runtime = runtime
         self.max_staleness = int(max_staleness)
         self.queue_capacity = (self.max_staleness + 1 if queue_capacity is None
@@ -897,6 +1025,7 @@ class ShardedTickEngine:
         self.retry_policy = retry_policy
         self.max_apply_retries = int(retry_policy.max_retries)
         self.fault_injector = fault_injector
+        self._init_leases(lease_interval, clock)
         self.stats = TickStats()  # fleet-aggregate counters
         self._epoch = 0
         self._version_clock = 0  # fleet-wide monotone diff-pull clock
@@ -922,11 +1051,13 @@ class ShardedTickEngine:
         return lane
 
     def _layout(self, job_id: str):
-        if job_id not in self.runtime._jobs:
+        info = self.runtime._jobs.get(job_id)
+        if info is None:
             raise ValueError(f"unknown job {job_id!r}: not registered with "
                              f"the runtime (have {sorted(self.runtime._jobs)})")
         if job_id not in self._counts:
             self._counts[job_id] = int(self.runtime.counts[job_id])
+        self._renew_lease(job_id)
         return self.plan.job_layout(job_id)
 
     def _job_rows(self, job_id: str, layout) -> Tuple:
@@ -936,8 +1067,15 @@ class ShardedTickEngine:
                                                      self.runtime.device)
         return rows
 
-    def expire_leases(self):
-        raise _not_in_slice("leases (expire_leases)", "9")
+    def expire_leases(self) -> Tuple[str, ...]:
+        """Reclaim every job whose lease has lapsed; returns their ids.
+        :meth:`ServiceTickEngine.expire_leases`, with the job's queued
+        pieces cancelled on every lane before it leaves through
+        ``runtime.remove_job`` (the sharded replan, K2 on the surviving
+        shards' deltas)."""
+        return self._expire(lambda j: [lane.queues.get(j)
+                                       for lane in self._lanes.values()],
+                            lambda entry: entry[2])
 
     def outstanding(self, job_id: str) -> int:
         """Deepest per-shard queue of the job's not-yet-applied pieces."""
@@ -1104,6 +1242,7 @@ class ShardedTickEngine:
         self._counts[job_id] = count
         fut = PushFuture(job_id, self, parts=len(pieces))
         inj = self.fault_injector
+        kind = self.runtime._jobs[job_id]["step_opts"].get("push_compression")
         for sid, piece in zip(layout.shard_ids, pieces):
             # Wire accounting per piece, on the fleet and the lane alike;
             # the bytes are spent even when the injector drops the piece.
@@ -1111,7 +1250,7 @@ class ShardedTickEngine:
             lane = self._lane(sid)
             for st in (self.stats, lane.stats):
                 st.push_bytes_raw += 4 * n
-                st.push_bytes_wire += 4 * n
+                st.push_bytes_wire += wire_bytes(n, kind)
             action = "deliver" if inj is None else inj.on_push(job_id, sid)
             if action == "drop":
                 continue  # lost in transit: the future keeps the part
@@ -1289,10 +1428,14 @@ class ShardedTickEngine:
         identical (piece, count) sequence, bit for bit since counts were
         fixed at submit time.  The snapshot is only read: it stays
         pristine for another rollback, and a replica may serve its
-        ``flat``."""
+        ``flat``.  A leaf the snapshot lacks (``ef``, when the snapshot
+        predates the fleet's widening) was all zero then, and is zeroed."""
         state = self.runtime.states[lane.shard_id]
-        for k, v in lane.snapshot.items():
-            state[k].copy_(v)
+        for k, v in state.items():
+            if k in lane.snapshot:
+                v.copy_(lane.snapshot[k])
+            else:
+                v.zero_()
         # The restore rewound the logged jobs' blocks: re-stamp them so a
         # diff client that saw the undone values is told they changed.
         self._stamp_lane(lane, {j for j, _, _, _ in lane.log})
@@ -1530,6 +1673,7 @@ class ShardedTickEngine:
             k: v for k, v in self._fleet_appliers.items()
             if not any(job_id in jobs for _, jobs in k)}
         self._counts.pop(job_id, None)
+        self._leases.pop(job_id, None)
         self._rows.pop(job_id, None)
 
     # -------------------------------------------------------------- applier
@@ -1538,16 +1682,21 @@ class ShardedTickEngine:
         combination: ONE launch of K1 over the shard's views of the arena,
         written in place.  The per-job step counts arrive with the queued
         pieces (fixed at submit time), so the order in which shards tick
-        cannot skew the bias correction."""
+        cannot skew the bias correction.  A compressed piece first takes
+        its error-feedback round against the shard's ``ef``."""
         shard_plan = self.plan.shard_of(shard_id)
-        block_idx, job_sizes, hps = _fused_tables(
-            [shard_plan.job_layout(j) for j in job_ids],
-            [self.runtime._jobs[j] for j in job_ids], _sharded_job_hp)
+        layouts = [shard_plan.job_layout(j) for j in job_ids]
+        infos = [self.runtime._jobs[j] for j in job_ids]
+        block_idx, job_sizes, hps = _fused_tables(layouts, infos,
+                                                  _sharded_job_hp)
         block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
                                                  self.runtime.device)
         block = shard_plan.block_align
+        compressed = _compressed_entries(layouts, infos, self.runtime.device)
 
         def apply(state, gs, counts):
+            if compressed:
+                gs = _ef_rounds(gs, compressed, lambda i: state["ef"])
             _fused_state_update(state, gs, counts, block=block,
                                 block_idx=block_idx_t, job_slot=job_slot_t,
                                 job_sizes=job_sizes, hps=hps)
@@ -1560,23 +1709,30 @@ class ShardedTickEngine:
         over the whole fleet arena, each entry's block table rebased by
         its shard's arena offset in blocks.  The offsets are
         block-aligned, so block exclusivity holds across the arena and
-        the launch is bit for bit the per-shard oracle's."""
+        the launch is bit for bit the per-shard oracle's.  Each compressed
+        piece takes its error-feedback round first, against its OWN
+        shard's span of the ``ef`` arena (which K1 never reads)."""
         plan = self.plan
         _, _, block = plan.concat_view([sid for sid, _ in key])
         arena_off = dict(zip(plan.shard_ids, plan.concat_view()[0]))
-        layouts, infos, bases = [], [], []
+        layouts, infos, bases, spans = [], [], [], []
         for sid, jobs in key:
             shard_plan = plan.shard_of(sid)
             for j in jobs:
                 layouts.append(shard_plan.job_layout(j))
                 infos.append(self.runtime._jobs[j])
                 bases.append(arena_off[sid] // block)
+                spans.append((arena_off[sid], shard_plan.total_len))
         block_idx, job_sizes, hps = _fused_tables(
             layouts, infos, _sharded_job_hp, base_blocks=bases)
         block_idx_t, job_slot_t = _device_tables(block_idx, job_sizes,
                                                  self.runtime.device)
+        compressed = _compressed_entries(layouts, infos, self.runtime.device)
 
         def apply(arena, gs, counts):
+            if compressed:
+                gs = _ef_rounds(gs, compressed, lambda i: arena["ef"][
+                    spans[i][0]:spans[i][0] + spans[i][1]])
             _fused_state_update(arena, gs, counts, block=block,
                                 block_idx=block_idx_t, job_slot=job_slot_t,
                                 job_sizes=job_sizes, hps=hps)

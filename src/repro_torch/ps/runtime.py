@@ -50,6 +50,7 @@ from ..tree import (  # noqa: F401  (re-exported for the runtime's users)
     tree_map,
     value_and_grad,
 )
+from .compression import ef_transform
 from .plan import FlatPlan, Segment, TensorSpec, segment_mask
 
 _NP_OF_TORCH = {torch.float32: np.float32, torch.float64: np.float64,
@@ -214,6 +215,28 @@ def _scatter_owned(layout, vec: torch.Tensor, packed) -> torch.Tensor:
     return vec
 
 
+def _ef_round(layout, ef: torch.Tensor, g: torch.Tensor, kind: str,
+              rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ONE error-feedback round of a job's packed gradient ``g`` against
+    its owned rows of the full ``ef`` buffer: returns the compressed
+    gradient and writes the residual back into those rows in place
+    (``ef_transform`` between a gather and a scatter).  The compressed
+    block step, the sharded step and every engine applier run this one
+    function, so their compressed trajectories agree bit for bit.
+    ``rows`` are the layout's owned blocks on ``ef``'s device, when the
+    caller keeps them."""
+    if layout.covers_all:
+        q, resid = ef_transform(g, ef, kind)
+        ef.copy_(resid)
+        return q
+    if rows is None:
+        rows = _rows(layout, ef.device)
+    view = ef.view(-1, layout.block)
+    q, resid = ef_transform(g, view[rows].reshape(-1), kind)
+    view[rows] = resid.view(-1, layout.block)
+    return q
+
+
 def _layout_rows(layout, device) -> Tuple[Optional[torch.Tensor], ...]:
     """Per-hosting-shard owned-block row indices of a ShardedJobLayout on
     ``device`` (None where the shard gather is the identity), uploaded
@@ -280,11 +303,6 @@ def _adam_math(p32, g, mu0, nu0, count: int, *, lr, b1, b2, eps):
     return new_p.reshape(-1), mu.reshape(-1), nu.reshape(-1)
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
-
-
 def make_ps_train_step(
     model_loss: Callable[[Any, Any], torch.Tensor],
     plan: FlatPlan,
@@ -302,8 +320,8 @@ def make_ps_train_step(
     updating ``state``'s buffers in place.
 
     ``job_id=None`` is the single-job step over a :func:`build_flat_plan`
-    space, state ``{flat, mu, nu, count}`` (:func:`init_ps_state`): pull
-    the whole tree, autograd, push the float32 flat gradient, and Adam
+    space, state ``{flat, mu, nu, count[, ef]}`` (:func:`init_ps_state`):
+    pull the whole tree, autograd, push the float32 flat gradient, and Adam
     over every lane -- kernel K5 in one launch with ``fused_kernel=True``,
     the plain ``_adam_math`` without.
 
@@ -316,18 +334,25 @@ def make_ps_train_step(
     ``update_mode="masked"`` is the full-space oracle: Adam over every
     lane with the plain ``_adam_math``, kept only on the job's payload
     lanes.
+
+    ``push_compression`` (``"bf16"`` or ``"int8"``) runs one
+    error-feedback round on the pushed gradient against ``state["ef"]``
+    before the update: the block step on the job's packed gradient and
+    owned rows of ``ef`` (``_ef_round``, as the engines do); the
+    single-job and masked steps over the whole space, the masked one
+    keeping the residual only on the job's lanes.
     """
     if update_mode not in ("block", "masked"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
-    if push_compression:
-        raise _not_in_slice("push_compression", "4")
     if job_id is None:
         return _make_single_job_step(model_loss, plan, abstract_params,
                                      lr=lr, b1=b1, b2=b2, eps=eps,
-                                     fused_kernel=fused_kernel)
+                                     fused_kernel=fused_kernel,
+                                     push_compression=push_compression)
     if update_mode == "block":
         return _make_block_step(model_loss, plan, abstract_params, lr=lr,
-                                b1=b1, b2=b2, eps=eps, job_id=job_id)
+                                b1=b1, b2=b2, eps=eps, job_id=job_id,
+                                push_compression=push_compression)
     mask_np = segment_mask(plan, job_id)
 
     def step(state, batch):
@@ -336,6 +361,15 @@ def make_ps_train_step(
         params = unflatten_tree(plan, flat, abstract_params, job_id)
         grads, loss = torch.func.grad_and_value(model_loss)(params, batch)
         gflat = flatten_tree(plan, grads, job_id, device=flat.device)
+        if push_compression:
+            # The whole space is quantized, block boundaries at full-space
+            # positions, with other jobs' lanes of ef masked out.
+            ef = state["ef"]
+            zero = torch.zeros((), dtype=ef.dtype, device=ef.device)
+            q, resid = ef_transform(gflat, torch.where(mask, ef, zero),
+                                    push_compression)
+            ef.copy_(torch.where(mask, resid, ef))
+            gflat = torch.where(mask, q, zero)
         count = state["counts"][job_id] + 1
         new_flat, mu, nu = _adam_math(flat, gflat, state["mu"], state["nu"],
                                       count, lr=lr, b1=b1, b2=b2, eps=eps)
@@ -349,7 +383,7 @@ def make_ps_train_step(
 
 
 def _make_single_job_step(model_loss, plan, abstract_params, *, lr, b1, b2,
-                          eps, fused_kernel):
+                          eps, fused_kernel, push_compression):
     """The single-job step (``runtime.py:361-420`` with ``job_id=None``)."""
     grad_fn = value_and_grad(model_loss)
 
@@ -359,6 +393,10 @@ def _make_single_job_step(model_loss, plan, abstract_params, *, lr, b1, b2,
         loss, grads = grad_fn(params, batch)
         gflat = flatten_tree(plan, grads, device=flat.device)  # PUSH, fp32
         del params, grads
+        if push_compression:
+            gflat, resid = ef_transform(gflat, state["ef"], push_compression)
+            state["ef"].copy_(resid)
+            del resid
         count = state["count"] + 1
         if fused_kernel:
             agg_ops.adam_update(flat, gflat, state["mu"], state["nu"], count,
@@ -374,9 +412,11 @@ def _make_single_job_step(model_loss, plan, abstract_params, *, lr, b1, b2,
 
 
 def _make_block_step(model_loss, plan, abstract_params, *, lr, b1, b2, eps,
-                     job_id):
+                     job_id, push_compression):
     """O(job-bytes) step over the job's packed domain through kernel K3;
-    co-resident jobs' lanes are never read or written."""
+    co-resident jobs' lanes are never read or written.  A compressed job's
+    gradient first takes one error-feedback round against its owned rows
+    of ``ef`` (:func:`_ef_round`, the engines' function)."""
     layout = plan.job_layout(job_id)
 
     def step(state, batch):
@@ -385,6 +425,8 @@ def _make_block_step(model_loss, plan, abstract_params, *, lr, b1, b2, eps,
         params = _unpack_slots(layout, packed_p, abstract_params)
         grads, loss = torch.func.grad_and_value(model_loss)(params, batch)
         g = _pack_slots(layout, grads)  # PUSH: one packed vector
+        if push_compression:
+            g = _ef_round(layout, state["ef"], g, push_compression)
         count = state["counts"][job_id] + 1
         # K3 reads the owned blocks of the FULL mu/nu itself; p goes in
         # packed, since the pull already materialized it.
@@ -404,36 +446,58 @@ def _make_block_step(model_loss, plan, abstract_params, *, lr, b1, b2, eps,
 def init_ps_state(plan: FlatPlan, params, push_compression=None
                   ) -> Dict[str, Any]:
     """Single-job state on the params' device: the flat buffer holds
-    exactly this job's tensors (float32), fresh moments, ``count`` 0."""
-    if push_compression:
-        raise _not_in_slice("push_compression", "4")
+    exactly this job's tensors (float32), fresh moments, ``count`` 0, and
+    with ``push_compression`` a zero error-feedback buffer ``ef``."""
     flat = flatten_tree(plan, params)
-    return {"flat": flat, "mu": torch.zeros_like(flat),
-            "nu": torch.zeros_like(flat), "count": 0}
+    state = {"flat": flat, "mu": torch.zeros_like(flat),
+             "nu": torch.zeros_like(flat), "count": 0}
+    if push_compression:
+        state["ef"] = torch.zeros_like(flat)
+    return state
 
 
-def init_shared_state(plan: FlatPlan, device) -> Dict[str, Any]:
+def init_shared_state(plan: FlatPlan, device, needs_ef: bool = False
+                      ) -> Dict[str, Any]:
     """Empty shared state for a compiled multi-job plan: zero flat/mu/nu
-    (separate buffers) and no step counters; jobs are seeded with
-    :func:`seed_job_params`."""
+    (separate buffers), with ``needs_ef`` also the shared error-feedback
+    buffer ``ef`` of the jobs that push compressed gradients, and no step
+    counters; jobs are seeded with :func:`seed_job_params`."""
+    names = ("flat", "mu", "nu", "ef") if needs_ef else ("flat", "mu", "nu")
     state: Dict[str, Any] = {
         name: torch.zeros(plan.total_len, dtype=torch.float32, device=device)
-        for name in ("flat", "mu", "nu")}
+        for name in names}
     state["counts"] = {}
     return state
 
 
 def seed_job_params(plan: FlatPlan, state, job_id: str, params):
     """Write a job's initial parameters into its owned blocks of the
-    shared space, with fresh (zero) Adam moments and step counter; other
-    jobs' lanes are untouched.  Updates the buffers in place; each buffer
-    gets its own zeros (never one shared tensor) so mu and nu cannot
-    alias."""
-    layout = plan.job_layout(job_id)
+    shared space, with fresh (zero) Adam moments, error feedback (when the
+    state has ``ef``) and step counter; other jobs' lanes are untouched.
+    Updates the buffers in place; each buffer gets its own zeros (never
+    one shared tensor) so mu and nu cannot alias.  A plan that is not
+    block-exclusive (hand-built, or read from an old checkpoint) is seeded
+    lane by lane through ``payload_index``."""
     flat = state["flat"]
-    _scatter_owned(layout, flat, _pack_slots(layout, params).to(flat.device))
-    for name in ("mu", "nu"):
-        _scatter_owned(layout, state[name],
-                       torch.zeros(layout.packed_len, dtype=torch.float32,
-                                   device=flat.device))
+    zeroed = [k for k in ("mu", "nu", "ef") if k in state]
+    try:
+        layout = plan.job_layout(job_id)
+    except ValueError:
+        idx = host_to_device(plan.payload_index(job_id), flat.device,
+                             torch.int64)
+        by_key = tree_leaves_by_key(params)
+        parts = [by_key[s.key].reshape(-1).to(flat.device, torch.float32)
+                 for s in plan.segments if s.job_id == job_id]
+        flat[idx] = (torch.cat(parts) if parts else
+                     torch.zeros(0, dtype=torch.float32, device=flat.device))
+        for name in zeroed:
+            state[name][idx] = 0.0
+    else:
+        _scatter_owned(layout, flat,
+                       _pack_slots(layout, params).to(flat.device))
+        for name in zeroed:
+            _scatter_owned(layout, state[name],
+                           torch.zeros(layout.packed_len,
+                                       dtype=torch.float32,
+                                       device=flat.device))
     return dict(state, counts=dict(state["counts"], **{job_id: 0}))

@@ -24,7 +24,15 @@ grows and shrinks with load (:class:`~repro_torch.ps.autoscaler.ElasticScaler`
 through ``service.scale_out`` / ``scale_in``).  The shard spaces' states
 are views into ONE fleet arena per leaf, so the fleet tick addresses
 every shard without copying state.  ``recover_shard`` re-hosts a lost
-(quarantined) shard's segments on the surviving fleet.
+(quarantined) shard's segments on the surviving fleet, and
+``save_checkpoint`` / ``restore_checkpoint`` commit and restore the fleet
+(a restore writes into the arena's views, migrating through K2 when the
+saved fleet differs).
+
+A job added with ``push_compression="bf16"|"int8"`` pushes through the
+engines' error-feedback path: the state gains an ``ef`` buffer (on the
+sharded fleet a fourth arena leaf) that migrates, snapshots and
+checkpoints with flat/mu/nu.
 
 Both runtimes run on the card unless given ``device="cpu"``.
 """
@@ -53,10 +61,10 @@ from .elastic import (
 from .faults import QUARANTINED
 from .plan import FlatPlan, ShardedPlan
 from .runtime import (
+    _ef_round,
     _gather_packed,
     _gather_pieces,
     _layout_rows,
-    _not_in_slice,
     _pack_slots,
     _scatter_owned,
     _split_pieces,
@@ -171,8 +179,6 @@ class ServiceRuntime:
         co-resident jobs' state) if placement changes."""
         if job_id in self._jobs:
             raise ValueError(f"job {job_id} already in the runtime")
-        if step_opts.get("push_compression"):
-            raise _not_in_slice("push_compression", "4")
         profile, specs = job_profile_from_tree(
             job_id, params,
             iteration_duration=iteration_duration,
@@ -287,7 +293,11 @@ class ServiceRuntime:
         else:
             if engine is not None and self.state is not None:
                 engine.drain()
-            state = init_shared_state(new, self.device)
+            state = init_shared_state(new, self.device,
+                                      needs_ef=_needs_ef(self._jobs))
+        if _needs_ef(self._jobs) and "ef" not in state:
+            # A compressed job joined a state that predates it.
+            state = dict(state, ef=torch.zeros_like(state["flat"]))
         # ---- COMMIT: the new layout becomes visible as a unit ----
         self.state = state
         if migrated:
@@ -332,31 +342,46 @@ class RecoveryReport:
     moved_tasks: int
 
 
-def _init_shard_state(splan: ShardedPlan, device):
+def _needs_ef(jobs) -> bool:
+    """Whether any job pushes compressed gradients (its state then needs
+    the error-feedback buffer ``ef``)."""
+    return any(info["step_opts"].get("push_compression")
+               for info in jobs.values())
+
+
+def _arena_views(splan: ShardedPlan, arena) -> Dict[str, Dict[str, Any]]:
+    """Each shard's state: a view of every arena leaf at the shard's
+    ``concat_view()`` offset."""
+    offsets, _, _ = splan.concat_view()
+    return {sid: {k: buf[off : off + sp.total_len]
+                  for k, buf in arena.items()}
+            for sid, sp, off in zip(splan.shard_ids, splan.shards, offsets)}
+
+
+def _init_shard_state(splan: ShardedPlan, device, leaves=LEAVES):
     """Zeroed state for every shard space of ``splan`` (the counterpart of
     the reference's per-shard ``_init_shard_state``), laid out as ONE fleet
-    arena per leaf: a (fleet lanes,) float32 buffer with each shard's
-    flat/mu/nu a view at ``splan.concat_view()``'s block-aligned offset.
-    No per-job counters: the runtime owns them.  Returns (arena,
-    states)."""
-    offsets, total, _ = splan.concat_view()
+    arena per leaf (flat/mu/nu, and ``ef`` when ``leaves`` names it): a
+    (fleet lanes,) float32 buffer with each shard's leaf a view at
+    ``splan.concat_view()``'s block-aligned offset.  No per-job counters:
+    the runtime owns them.  Returns (arena, states)."""
+    _, total, _ = splan.concat_view()
     arena = {k: torch.zeros(total, dtype=torch.float32, device=device)
-             for k in LEAVES}
-    states = {sid: {k: arena[k][off : off + sp.total_len] for k in LEAVES}
-              for sid, sp, off in zip(splan.shard_ids, splan.shards,
-                                      offsets)}
-    return arena, states
+             for k in leaves}
+    return arena, _arena_views(splan, arena)
 
 
 def _make_sharded_step(model_loss, layout, abstract_params, *, lr, b1, b2,
-                       eps, device):
+                       eps, device, push_compression=None):
     """O(job-bytes) step spanning ONLY the shards hosting the job:
     ``(shard_states, count, batch) -> (count + 1, {"loss"})``, writing the
     shard states in place.  The pull gathers each hosting shard's owned
     blocks into the job's packed domain; the update runs per shard, on
     that shard's piece with the job's GLOBAL step count, through K3 --
     elementwise, so splitting by shard changes nothing and the trajectory
-    is the single-space block step's bit for bit."""
+    is the single-space block step's bit for bit.  With
+    ``push_compression`` each piece first takes one error-feedback round
+    against THAT shard's ``ef`` (``_ef_round``, the engines' function)."""
     rows = _layout_rows(layout, device)
 
     def step(shard_states, count, batch):
@@ -367,8 +392,10 @@ def _make_sharded_step(model_loss, layout, abstract_params, *, lr, b1, b2,
         grads, loss = torch.func.grad_and_value(model_loss)(params, batch)
         g = _pack_slots(layout, grads)
         new_count = count + 1
-        for l, st, pp, gj in zip(layout.layouts, shard_states, pieces,
-                                 _split_pieces(layout, g)):
+        for l, r, st, pp, gj in zip(layout.layouts, rows, shard_states,
+                                    pieces, _split_pieces(layout, g)):
+            if push_compression:
+                gj = _ef_round(l, st["ef"], gj, push_compression, r)
             new_p, mu, nu = agg_ops.block_adam_update(
                 pp, gj, st["mu"], st["nu"], new_count, block_idx=l.blocks,
                 block=l.block, lr=lr, b1=b1, b2=b2, eps=eps, wd=0.0,
@@ -395,7 +422,11 @@ class ShardedServiceRuntime:
     ONE Aggregator the shard space is the flat runtime's and the
     trajectory reproduces it bit for bit.
 
-    Not ported yet: checkpoints (item 11), compressed pushes (item 4).
+    A compressed job (``push_compression``) gives the arena a fourth leaf,
+    ``ef``, with a view per shard like flat/mu/nu; K1 never reads it.
+    Every write into the arena (a rollback, a restore) copies into the
+    views, so the lanes, the engine's tables and the read tier keep
+    addressing the one arena.
     """
 
     def __init__(self, service, device: DeviceLike = None):
@@ -473,11 +504,11 @@ class ShardedServiceRuntime:
         **step_opts,
     ) -> None:
         """Register a job and seed its parameters into the shards the
-        control plane assigned its tensors to."""
+        control plane assigned its tensors to.  With
+        ``push_compression="bf16"|"int8"`` in ``step_opts`` its pushes take
+        the error-feedback path, and the fleet gains the ``ef`` leaf."""
         if job_id in self._jobs:
             raise ValueError(f"job {job_id} already in the runtime")
-        if step_opts.get("push_compression"):
-            raise _not_in_slice("push_compression", "4")
         profile, specs = job_profile_from_tree(
             job_id, params,
             iteration_duration=iteration_duration,
@@ -524,14 +555,15 @@ class ShardedServiceRuntime:
 
     def _seed_job(self, job_id: str, params) -> None:
         """Write the job's parameters into its owned blocks of every
-        hosting shard, in place, with zero moments and step count."""
+        hosting shard, in place, with zero moments, error feedback and
+        step count."""
         layout = self.splan.job_layout(job_id)
         packed = _pack_slots(layout, params).to(self.device)
         for sid, l, piece in zip(layout.shard_ids, layout.layouts,
                                  _split_pieces(layout, packed)):
             st = self.states[sid]
             _scatter_owned(l, st["flat"], piece)
-            for k in ("mu", "nu"):
+            for k in [k for k in st if k != "flat"]:
                 _scatter_owned(l, st[k], torch.zeros(
                     l.packed_len, dtype=torch.float32, device=self.device))
         self.counts[job_id] = 0
@@ -627,13 +659,67 @@ class ShardedServiceRuntime:
             rehosted_elements=old_sp.payload_elements,
             moved_tasks=moved_tasks)
 
+    # ----------------------------------------------------------- checkpoint
     def save_checkpoint(self, directory, step: int, **kw):
-        raise _not_in_slice("sharded checkpoints", "11")
+        """Commit the shard map, every shard space (``ef`` included) and
+        the per-job step counts atomically
+        (:func:`~repro_torch.checkpoint.save_sharded_checkpoint`).  Drains
+        the engine first (a queued push is lost to a restore) and records
+        the fleet's health in the aux record."""
+        from ..checkpoint import save_sharded_checkpoint
 
-    def restore_checkpoint(self, directory, step: int, **kw):
-        raise _not_in_slice("sharded checkpoints", "11")
+        if self._engine is not None:
+            self._engine.drain()
+            if "extra_aux" not in kw:
+                kw["extra_aux"] = {"shard_health":
+                                   self._engine.shard_health()}
+        return save_sharded_checkpoint(directory, step, self.splan,
+                                       self.states, self.counts, **kw)
+
+    def restore_checkpoint(self, directory, step: int, **kw) -> None:
+        """Restore the shard states and step counts of a sharded
+        checkpoint INTO the live arena's views (``copy_``), so every lane,
+        the engine's appliers and the read tier keep addressing the one
+        arena; a checkpoint of another fleet (N shards into this
+        runtime's M) migrates into the arena through
+        ``migrate_sharded_state`` (K2 on the surviving shards' deltas).
+        The jobs must already be registered.  A checkpoint with ``ef``
+        widens a fleet without it; one without leaves ``ef`` zero.  The
+        engine drains first, and its lane snapshots, replay logs and step
+        mirrors are dropped: they describe the state before the restore,
+        and every lane's jobs are stamped as changed for diff pulls."""
+        from ..checkpoint import load_aux, restore_sharded_checkpoint
+
+        if self._engine is not None:
+            self._engine.drain()
+        aux = load_aux(directory, step) or {}
+        if any("ef" in leaves
+               for leaves in aux.get("shard_leaves", {}).values()):
+            self._widen_ef()
+        _, _, counts = restore_sharded_checkpoint(
+            directory, step, splan=self.splan, device=self.device,
+            out=self.states, **kw)
+        self.counts = dict(counts)
+        eng = self._engine
+        if eng is not None:
+            eng._counts.clear()
+            for lane in eng._lanes.values():
+                lane.snapshot, lane.log, lane.ticks_since_snapshot = \
+                    None, [], 0
+                eng._stamp_lane(lane, self.splan.shard_of(
+                    lane.shard_id).job_ids)
 
     # --------------------------------------------------------------- replan
+    def _widen_ef(self) -> None:
+        """Give the fleet a zero ``ef`` arena and every shard its view,
+        leaving flat/mu/nu as they are (a no-op when it has one)."""
+        if self.arena is None or "ef" in self.arena:
+            return
+        self.arena["ef"] = torch.zeros_like(self.arena["flat"])
+        for sid, views in _arena_views(self.splan,
+                                       {"ef": self.arena["ef"]}).items():
+            self.states[sid]["ef"] = views["ef"]
+
     def _on_replan(self, old_flat, new_flat):
         engine = self._engine
         if new_flat is None:  # last job exited
@@ -653,7 +739,11 @@ class ShardedServiceRuntime:
         touched = None  # None: every job's layout may have changed
         moved_elems = 0
         migrated = old is not None and bool(self.states)
-        arena, fresh = _init_shard_state(new, self.device)
+        # ef joins the arena with the first compressed job and stays, as
+        # the reference's per-shard ef buffers do.
+        leaves = (LEAVES + ("ef",) if _needs_ef(self._jobs) or (
+            self.arena is not None and "ef" in self.arena) else LEAVES)
+        arena, fresh = _init_shard_state(new, self.device, leaves)
         if migrated:
             _, touched_pre = sharded_transition_summary(old, new)
             if engine is not None:
@@ -680,7 +770,8 @@ class ShardedServiceRuntime:
             steps[job_id] = (layout.shard_ids, _make_sharded_step(
                 info["loss_fn"], layout, info["abstract"], lr=info["lr"],
                 b1=info["b1"], b2=info["b2"], eps=info["eps"],
-                device=self.device))
+                device=self.device,
+                push_compression=info["step_opts"].get("push_compression")))
         # ---- COMMIT: the new layout becomes visible as a unit ----
         self.arena, self.states = arena, states
         if migrated:

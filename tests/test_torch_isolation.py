@@ -22,7 +22,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
-    assert "repro_torch.ps.service_runtime" in mods
+    for m in ("repro_torch.ps.service_runtime", "repro_torch.ps.compression",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
+        assert m in mods
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             + "".join(f"import {m}\n" for m in mods)

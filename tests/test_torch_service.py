@@ -329,11 +329,13 @@ def test_default_device_is_the_card():
 
 
 def test_parts_outside_the_slice_raise():
+    """What earlier slices refused runs now: versioned pulls, compressed
+    pushes (item 4) and leases (item 9)."""
     rt, eng = _port_runtime(engine=dict(max_staleness=0))
-    eng.pull("a", since_version=0)  # versioned pulls are ported now
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.add_job("c", _quad_tree(3, (8,)), _quad_loss,
-                   push_compression="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TRuntime(TService(total_budget=16, n_clusters=1), device="cpu"
-                 ).attach_engine(lease_interval=1.0)
+    eng.pull("a", since_version=0)
+    rt.add_job("c", _quad_tree(3, (8,)), _quad_loss,
+               push_compression="int8")
+    assert "ef" in rt.state
+    eng2 = TRuntime(TService(total_budget=16, n_clusters=1), device="cpu"
+                    ).attach_engine(lease_interval=1.0)
+    assert eng2.lease_interval == 1.0 and eng2.expire_leases() == ()

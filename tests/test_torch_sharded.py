@@ -522,23 +522,29 @@ def test_last_exit_drops_the_fleet():
 
 # --------------------------------------------------- outside this slice
 def _out_of_slice_cases():
+    """Entry points that earlier slices refused with their Queue 1 item;
+    items 4, 9 and 11 are ported now, so each must run."""
     def compression():
         rt = TSharded(_service(TService), device="cpu")
         rt.add_job("a", tree_from_numpy(TREES["a"], "cpu"), _loss_torch,
                    push_compression="int8")
+        return "ef" in rt.arena
 
     def lease():
         rt = TSharded(_service(TService), device="cpu")
-        rt.attach_engine(lease_interval=1.0)
+        return rt.attach_engine(lease_interval=1.0).lease_interval == 1.0
 
     def expire():
-        _port(engine={})[1].expire_leases()
+        return _port(engine={})[1].expire_leases() == ()
 
     def save(tmp):
-        _port()[0].save_checkpoint(tmp, 1)
+        return _port()[0].save_checkpoint(tmp, 1).exists()
 
     def restore(tmp):
-        _port()[0].restore_checkpoint(tmp, 1)
+        rt = _port()[0]
+        rt.save_checkpoint(tmp, 1)
+        rt.restore_checkpoint(tmp, 1)
+        return rt.counts == {j: 0 for j in TREES}
 
     return [("4", compression), ("9", lease), ("9", expire), ("11", save),
             ("11", restore)]
@@ -547,8 +553,6 @@ def _out_of_slice_cases():
 @pytest.mark.parametrize("item,call", _out_of_slice_cases(),
                          ids=lambda c: getattr(c, "__name__", c))
 def test_out_of_slice_entry_points_raise(item, call, tmp_path):
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-        if call.__code__.co_argcount:
-            call(tmp_path)
-        else:
-            call()
+    """Each entry point a slice refused (``NotImplementedError`` naming
+    its item) runs now that items 4, 9 and 11 are ported."""
+    assert call(tmp_path) if call.__code__.co_argcount else call(), item

@@ -274,9 +274,9 @@ def test_registry_and_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         ttf.make_serve_step(dataclasses.replace(tqwen.smoke_config(),
                                                 mla=object()))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        truntime.make_ps_train_step(lambda p, b: 0, None, {},
-                                    push_compression="int8")
+    # Compressed pushes (item 4) are ported: the step builds.
+    assert callable(truntime.make_ps_train_step(lambda p, b: 0, None, {},
+                                                push_compression="int8"))
 
 
 def _rand(rng, *shape):
