@@ -78,6 +78,26 @@ the paper workloads' full tensor inventories:
      appliers' tick on that clone.  The phase must stay within 50 GB at
      peak, and phases s, r and q together leave at most 256 MiB
      allocated; the EF round's own time is printed, never checked;
+  t. the chaos trace replay of ``repro_torch.sim.replay.run_replay`` at
+     the paper inventories' full widths: ``ReplayConfig()``'s trace (14
+     jobs, 12 windows, seed 0, at most 6 live), each admitted job
+     carrying its model's whole tensor inventory (VGG19 j0 and j13,
+     AlexNet j1 and j4, BERT-base j3, j5, j8, j11 and j12, AWD-LM j2, j6,
+     j7, j9 and j10; up to ~363 M fleet lanes), through the sharded
+     fleet under its chaos schedule: apply faults, a boundary and a
+     mid-migration ``fail_migration``, a dropped push piece, a killed
+     shard re-hosted by ``recover_shard`` and a dead trainer reclaimed
+     by its lease; it must show no registry divergence, the reclaim
+     within one lease interval, ``fail_migration`` twice and
+     ``drop_push`` once with 2 aborts and 2 retries, one recovery and
+     one lease expiration, every lane a view of the fleet arena after
+     every window; then the no-fault replay against a flat
+     ServiceRuntime twin (K1 ticks and sharded K2 against K3 block steps
+     and flat K2), every live job bit for bit at every window.
+     Per-window lines give
+     the live jobs, shards, the scaler's action, launches, tick and
+     replan seconds; the phase must stay within 50 GB at peak and leave
+     at most 256 MiB allocated;
   d. two small real models (the MLP jobs of examples/multi_job_service.py)
      train through ``engine.step`` and through ``ServiceRuntime.step``
      with the block kernel; a compressed (int8) MLP job in two twin
@@ -171,8 +191,8 @@ limit, and as the last line
 Run from the repository root: ``python3 chip_smoke.py``.  Without CUDA,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  ``--scale 0.001`` rehearses the phases on the card on smaller
-tensors (phases e-h and i-k on the smoke configs); a rehearsal prints no
-result and exits 2.
+tensors (phases e-h and i-k on the smoke configs), prints no result
+and exits 2.
 """
 
 from __future__ import annotations
@@ -1100,16 +1120,16 @@ def r_drain(s: Service, wrappers, what: str):
     return n
 
 
-def lane_views_ok(s: Service):
-    """Every lane's flat/mu/nu is still a view of the fleet arena at its
+def lane_views_ok(rt, what: str):
+    """Every lane's state leaf is still a view of the fleet arena at its
     block-aligned offset."""
-    offsets = dict(zip(s.plan.shard_ids, s.plan.concat_view()[0]))
-    for sid, st in s.rt.states.items():
+    offsets = dict(zip(rt.splan.shard_ids, rt.splan.concat_view()[0]))
+    for sid, st in rt.states.items():
         for k, v in st.items():
-            arena = s.rt.arena[k]
+            arena = rt.arena[k]
             if v._base is not arena or (v.data_ptr() - arena.data_ptr()
                                         != 4 * offsets[sid]):
-                raise AssertionError(f"phase r: shard {sid}'s {k} is no "
+                raise AssertionError(f"{what}: shard {sid}'s {k} is no "
                                      f"longer a view of the fleet arena")
 
 
@@ -1222,7 +1242,7 @@ def transient_fault(s: Service, wrappers, what: str, in_k1: bool = False):
                 f"the fault-free per-shard replay (max abs "
                 f"{max_abs(v, s.rt.arena[k])})")
     del clone, rounds
-    lane_views_ok(s)
+    lane_views_ok(s.rt, what)
     return target, d_stats, oracle
 
 
@@ -1525,7 +1545,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
     if sorted(s.rt.arena) != ["ef", "flat", "mu", "nu"]:
         raise AssertionError(f"phase q: the arena holds {sorted(s.rt.arena)}"
                              f", want flat/mu/nu/ef")
-    lane_views_ok(s)
+    lane_views_ok(s.rt, "phase q")
     print(f"phase q set-up: jobs={list(s.rt.job_ids)} compression="
           f"{ {j: Q_COMPRESSION.get(j) for j in s.rt.job_ids} } shards="
           f"{s.rt.n_shards} lanes_per_shard="
@@ -1578,7 +1598,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
     if min(k2) < 1 or sorted(s.rt.arena) != ["ef", "flat", "mu", "nu"]:
         raise AssertionError(f"phase q arrival: K2 launches {k2}, arena "
                              f"{sorted(s.rt.arena)}")
-    lane_views_ok(s)
+    lane_views_ok(s.rt, "phase q")
     times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q1")
     print(f"phase q q1 (AWD-LM arrives, int8): replan_s={replan_s:.2f} "
           f"shards={s.rt.n_shards} moved_elements={moved} touched="
@@ -1636,7 +1656,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
     if k2 != (len(relaid), len(relaid)):
         raise AssertionError(f"phase q q2: K2 launches {k2}; surviving "
                              f"shards with moved blocks: {relaid}")
-    lane_views_ok(s)
+    lane_views_ok(s.rt, "phase q")
     times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q2")
     print(f"phase q q2 (lease {Q_LEASE_S} s on a manual clock; {silent} "
           f"silent with a push queued): expired={list(expired)} "
@@ -1678,7 +1698,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
                     f"phase q q3: after the restore the arena's {k} differs "
                     f"from the clone taken at the save (max abs "
                     f"{max_abs(s.rt.arena[k], v)})")
-        lane_views_ok(s)
+        lane_views_ok(s.rt, "phase q")
         if s.rt.counts != counts_at_save:
             raise AssertionError(f"phase q q3: counts {s.rt.counts}, saved "
                                  f"{counts_at_save}")
@@ -1717,6 +1737,234 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
           f"{host_rss_gb():.2f}", flush=True)
     elastic.clear_plan_cache()
     return counts, s
+
+
+# ------------------------------ phase t: the chaos trace replay, full width
+T_PEAK_GB = 50.0  # phase t's budget of device memory at peak
+# The trace's model mix (philly_like_trace(seed=0, n_jobs=14)), checked
+# against what the replay admits.
+T_MIX = {"j0": "vgg19", "j13": "vgg19", "j1": "alexnet", "j4": "alexnet",
+         **{f"j{i}": "bert" for i in (3, 5, 8, 11, 12)},
+         **{f"j{i}": "awd-lm" for i in (2, 6, 7, 9, 10)}}
+
+
+class MethodTimer:
+    """Host seconds inside some methods, per label, each outermost call
+    ended by a device sync (so a tick's time is its kernels' too), while
+    armed as a context manager.  Calls nested in a call of the same label
+    are not counted again; a call's seconds exclude those of the timed
+    calls of other labels nested in it (a recovery's replan counts as a
+    replan only), so the labels' seconds add up."""
+
+    def __init__(self, device, targets):
+        self.device, self.targets = device, targets  # {label: [(cls, name)]}
+        self.calls = dict.fromkeys(targets, 0)
+        self.seconds = dict.fromkeys(targets, 0.0)
+        self._depth = dict.fromkeys(targets, 0)
+        self._nested = []  # seconds of timed calls inside each open call
+        self._saved = []
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            if self._depth[label]:
+                return fn(*args, **kwargs)
+            self._depth[label] += 1
+            self._nested.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync(self.device)
+                took = time.perf_counter() - t0
+                self.seconds[label] += took - self._nested.pop()
+                if self._nested:
+                    self._nested[-1] += took
+                self.calls[label] += 1
+                self._depth[label] -= 1
+        return timed
+
+    def __enter__(self):
+        for label, methods in self.targets.items():
+            for cls, name in methods:
+                fn = cls.__dict__[name]
+                self._saved.append((cls, name, fn))
+                setattr(cls, name, self._wrap(label, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in reversed(self._saved):
+            setattr(cls, name, fn)
+        self._saved = []
+
+    def take(self):
+        """{label: (calls, seconds)} since the last take."""
+        out = {k: (self.calls[k], self.seconds[k]) for k in self.targets}
+        self.calls = dict.fromkeys(self.targets, 0)
+        self.seconds = dict.fromkeys(self.targets, 0.0)
+        return out
+
+
+def replay_job_tree(device, scale, models):
+    """``run_replay``'s ``job_tree``: each trace job's model's whole
+    tensor inventory (``chunked_inventory``), N(0, 1) * 0.02 from one
+    seeded generator in admission order; records the model of each job in
+    ``models``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def job_tree(job_id, trace_job):
+        model = trace_job.profile.model
+        models[job_id] = model
+        return {k: torch.randn(n, generator=gen, device=device) * 0.02
+                for k, n in chunked_inventory(model, scale)}
+
+    return job_tree
+
+
+def replay_run(name, cfg, device, wrappers, scale):
+    """One ``run_replay`` of phase t at the inventories' widths, with a
+    line per window (live jobs, shards, the scaler's action, lanes, K1/K2/
+    K3 launches, tick and replan seconds, wall seconds, peak GB), every
+    lane checked to be a view of the fleet arena after each window.
+    Returns (report, {label: (calls, seconds)} over the run, the window
+    rows' extras, wall seconds)."""
+    from repro_torch.ps.engine import ShardedTickEngine
+    from repro_torch.ps.service_runtime import (
+        ServiceRuntime,
+        ShardedServiceRuntime,
+    )
+    from repro_torch.sim.replay import run_replay
+
+    models = {}
+    timer = MethodTimer(device, {
+        "tick": [(ShardedTickEngine, "tick"),
+                 (ShardedTickEngine, "tick_shard")],
+        "replan": [(ShardedServiceRuntime, "_on_replan")],
+        "recover": [(ShardedServiceRuntime, "recover_shard")],
+        "twin_step": [(ServiceRuntime, "step")],
+        "twin_replan": [(ServiceRuntime, "_on_replan")],
+    })
+    totals = {}
+    last = dict(read_counters(wrappers))
+    t_run = time.perf_counter()
+    t_win = [t_run]
+    rows = []
+
+    def on_window(row, rt):
+        sync(device)
+        now = time.perf_counter()
+        if rt.splan is not None:
+            lane_views_ok(rt, f"phase t {name}")
+        counts = read_counters(wrappers)
+        delta = {k: counts[k] - last[k] for k in counts}
+        last.update(counts)
+        took = timer.take()
+        for k, (n, sec) in took.items():
+            c, s0 = totals.get(k, (0, 0.0))
+            totals[k] = (c + n, s0 + sec)
+        lanes = rt.splan.concat_view()[1] if rt.splan is not None else 0
+        extra = dict(
+            lanes=lanes, k1=delta["agg_adam_multijob_fused"],
+            k2=delta["relayout_scatter"], k3=delta["agg_adam_blocks"],
+            ticks=took["tick"][0], tick_ms=took["tick"][1] * 1e3,
+            replans=took["replan"][0], replan_s=took["replan"][1],
+            recover_s=took["recover"][1],
+            twin_replan_s=took["twin_replan"][1],
+            twin_step_s=took["twin_step"][1], wall_s=now - t_win[-1],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows.append(extra)
+        t_win.append(now)
+        print(f"phase t {name} window {row['window']}: live={row['live']} "
+              f"shards={row['n_shards']} action={row['action']} lanes="
+              f"{lanes} K1={extra['k1']} K2={extra['k2']} K3={extra['k3']} "
+              f"ticks={extra['ticks']} tick_ms={extra['tick_ms']:.1f} "
+              f"replans={extra['replans']} replan_s={extra['replan_s']:.2f}"
+              f" recover_s={extra['recover_s']:.2f}"
+              + (f" twin_step_s={extra['twin_step_s']:.2f} twin_replan_s="
+                 f"{extra['twin_replan_s']:.2f} parity={row['parity']}"
+                 if cfg.parity_twin else "")
+              + f" faults_fired={row['faults_fired']} agree={row['agree']}"
+              f" wall_s={extra['wall_s']:.2f} peak_gb={extra['peak_gb']:.2f}"
+              f" host_maxrss_gb={host_rss_gb():.2f}", flush=True)
+
+    with timer:
+        report = run_replay(cfg, device=device,
+                            job_tree=replay_job_tree(device, scale, models),
+                            on_window=on_window)
+    sync(device)
+    wall = time.perf_counter() - t_run
+    wrong = {j: m for j, m in models.items() if T_MIX.get(j) != m}
+    if wrong:
+        raise AssertionError(f"phase t {name}: admitted models {wrong} are "
+                             f"not the trace's mix {T_MIX}")
+    return report, totals, rows, wall
+
+
+def replay_phase(device, wrappers, scale):
+    """Phase t: ``ReplayConfig()``'s chaos replay and its no-fault parity
+    replay (``chaos=False, parity_twin=True``) through
+    ``repro_torch.sim.replay.run_replay``, each admitted trace job at its
+    paper model's full tensor inventory.  The chaos run must show the
+    reference's invariants: no registry divergence, the dead trainer
+    reclaimed within one lease interval, ``fail_migration`` twice and
+    ``drop_push`` once with 2 aborts and 2 retries, one ``recover_shard``
+    and one lease expiration; the parity run every window bit for bit
+    against the flat twin.  Within 50 GB at peak.  Returns the phase's
+    launch counts."""
+    from repro_torch.ps import elastic
+    from repro_torch.sim.replay import ReplayConfig
+
+    t_phase = time.perf_counter()
+    reset_counters(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for name, kw in (("chaos", {}),
+                     ("parity", dict(chaos=False, parity_twin=True))):
+        elastic.clear_plan_cache()
+        cfg = ReplayConfig(**kw)
+        report, totals, rows, wall = replay_run(name, cfg, device, wrappers,
+                                                scale)
+        results[name] = report
+        print(f"phase t {name}: " + " ".join(
+            f"{k}={v}" for k, v in report.items() if k != "windows")
+            + " " + " ".join(f"{k}_calls={n} {k}_s={sec:.2f}"
+                             for k, (n, sec) in totals.items())
+            + f" lanes_peak={max(r['lanes'] for r in rows)} peak_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} wall_s="
+            f"{wall:.1f}", flush=True)
+    chaos, parity = results["chaos"], results["parity"]
+    lease_ok = (chaos["reclaim_latency_windows"] is not None
+                and chaos["reclaim_latency_windows"]
+                <= int(chaos["lease_interval"]) + 1)
+    want = {
+        "registry_divergence_windows": (chaos[
+            "registry_divergence_windows"], 0),
+        "reclaimed within one lease interval": (lease_ok, True),
+        "fail_migration fired": (
+            chaos["faults_by_kind"].get("fail_migration", 0), 2),
+        "drop_push fired": (chaos["faults_by_kind"].get("drop_push", 0), 1),
+        "n_replan_aborts": (chaos["n_replan_aborts"], 2),
+        "n_replan_retries": (chaos["n_replan_retries"], 2),
+        "n_recoveries": (chaos["n_recoveries"], 1),
+        "n_lease_expirations": (chaos["n_lease_expirations"], 1),
+        "parity_violations": (parity["parity_violations"], 0),
+        "parity registry_divergence_windows": (
+            parity["registry_divergence_windows"], 0),
+    }
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"phase t: {bad} (got, want)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb > T_PEAK_GB:
+        raise AssertionError(f"phase t: {peak_gb:.2f} GB at peak, over its "
+                             f"{T_PEAK_GB} GB budget")
+    counts = read_counters(wrappers)
+    elastic.clear_plan_cache()
+    print(f"phase t (chaos trace replay, full width): counters={counts} "
+          f"checks={ {k: v[0] for k, v in want.items()} } peak_gb="
+          f"{peak_gb:.2f} seconds={time.perf_counter() - t_phase:.1f} "
+          f"host_maxrss_gb={host_rss_gb():.2f}", flush=True)
+    return counts
 
 
 # -------------------------------------------------------- the MLP phase
@@ -2995,6 +3243,10 @@ def main() -> int:
     print(f"phases s, r and q leak check: {leaked} bytes left allocated "
           f"(budget {S_LEAK_BYTES})", flush=True)
 
+    # ---- phase t: the chaos trace replay and its no-fault parity replay
+    # at the paper inventories' full widths; then its own leak check
+    add_totals(run_phase_t(device, wrappers, scale))
+
     # ---- phase d: real models on the device
     counts = mlp_phase(device, wrappers)
     _require(counts, ("agg_adam_multijob_fused", "agg_adam_blocks"), "d")
@@ -3134,6 +3386,26 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_phase_t(device, wrappers, scale):
+    """Phase t with its launch check and its leak check; returns its
+    launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    counts = replay_phase(device, wrappers, scale)
+    _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
+                      "relayout_scatter", "agg_adam_blocks"), "t")
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaked = torch.cuda.memory_allocated() - baseline
+    if leaked > S_LEAK_BYTES:
+        raise AssertionError(f"phase t left {leaked / 2**20:.1f} MiB "
+                             f"allocated (budget {S_LEAK_BYTES >> 20} MiB)")
+    print(f"phase t leak check: {leaked} bytes left allocated (budget "
+          f"{S_LEAK_BYTES})", flush=True)
+    return counts
 
 
 def _require(counts, names, phase):

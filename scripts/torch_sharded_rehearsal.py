@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py``'s phases s (the sharded service), r (its
 read side and fault tolerance), q (compressed pushes, leases and a
-checkpoint) and d (the MLP jobs, a compressed one included) on the CPU.
+checkpoint), t (the chaos trace replay and its no-fault parity replay)
+and d (the MLP jobs, a compressed one included) on the CPU.
 
 Runs ``chip_smoke.sharded_phase``, ``chip_smoke.read_phase`` on its
-runtime, ``chip_smoke.compressed_phase`` on a fresh fleet and
-``chip_smoke.mlp_phase``, on ``device="cpu"`` at a small scale of the
-paper inventories, so their control flow, their oracles (fused fleet
-tick against the per-shard appliers, every transition against the
-gather oracle, the faulted arena against the fault-free per-shard
-replay, diff pulls against full pulls, the restored arena against the
-clone taken at the save, engine.step against ServiceRuntime.step) and
-the scaler's decisions can be checked without a card.  The kernel
+runtime, ``chip_smoke.compressed_phase`` on a fresh fleet,
+``chip_smoke.replay_phase`` and ``chip_smoke.mlp_phase``, on
+``device="cpu"`` at a small scale of the paper inventories, so their
+control flow, their oracles (fused fleet tick against the per-shard
+appliers, every transition against the gather oracle, the faulted arena
+against the fault-free per-shard replay, diff pulls against full pulls,
+the restored arena against the clone taken at the save, engine.step
+against ServiceRuntime.step, the replay's chaos invariants and its
+fleet against the flat twin) and the scaler's decisions can be checked
+without a card.  The kernel
 wrappers count only CUDA launches, so each is wrapped here in a stand-in
 that counts its calls; the card-only memory calls read 0 and CUDA-event
 timings are host timings.  Times printed by a rehearsal are CPU times,
@@ -91,6 +94,9 @@ def main() -> int:
                                             args.scale, s_tick_ms)
     print(f"rehearsal at scale {args.scale}: phase q calls {counts}")
     del s
+    counts = chip_smoke.replay_phase(torch.device("cpu"), wrappers,
+                                     args.scale)
+    print(f"rehearsal at scale {args.scale}: phase t calls {counts}")
     counts = chip_smoke.mlp_phase(torch.device("cpu"), wrappers)
     print(f"rehearsal: phase d calls {counts}")
     return 0

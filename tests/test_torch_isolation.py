@@ -23,7 +23,11 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     for m in ("repro_torch.ps.service_runtime", "repro_torch.ps.compression",
-              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+              "repro_torch.sim", "repro_torch.sim.trace",
+              "repro_torch.sim.simulator", "repro_torch.sim.replay",
+              "repro_torch.core.cyclic", "repro_torch.core.ip_model",
+              "repro_torch.core.profiler"):
         assert m in mods
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
