@@ -155,7 +155,43 @@ and the recsys family at its published widths (seeded random weights):
   k. SASRec and DIEN at the train_batch cell's 65,536 through
      ``launch/train.build``: 3 steps of adam(1e-3) each (plain PyTorch;
      no TPU kernel in either package), after two identical backward
-     passes of the first batch held against each other bit for bit.
+     passes of the first batch held against each other bit for bit;
+
+and the rest of the LM family (seeded random bf16 weights; each model
+freed before the next):
+
+  m. granite-moe-1b-a400m whole (24 layers, d_model 1024, 32 experts
+     top-8 of width 512, vocab 49,155; 1.33 B parameters): 5 steps of
+     ``make_train_step`` with ``adam(3e-4, fused=True)`` at 8 x 512, one
+     K5 launch per leaf per step, the first step held bit for bit against
+     the same step through K5's plain version; ``launch/serve.main`` on
+     its normal path (the weights hosted and read through 2 read-tier
+     replicas, served bit for bit the hosted ones; decode at batch 16, a
+     128-token prompt, 128 tokens); ``make_prefill`` at the prefill_32k
+     cell's overrides (32 768 tokens, ``moe_groups`` 256,
+     ``attn_chunk_k`` 1024; batch cut from 32 to 1), K7 at head dim 64,
+     24 launches a prefill, held against the plain chunked prefill;
+     then, in float32 with a capacity factor of E / k (no token dropped),
+     64 decode steps of a (4, 64) prompt against its prefill, the routing
+     decisions that differ counted;
+  n. granite-8b whole (36 layers, d_model 4096, 32/8 heads at head dim
+     128; 16.1 GB) and command-r-plus-104b at its published widths with
+     its depth cut from 64 to 6 layers (d_model 12,288, 96/8 heads, d_ff
+     33,792, vocab 256,000 tied, the parallel block, LayerNorm; 25 GB):
+     each through ``launch/serve.main --direct`` (decode at batch 16,
+     its last prompt step held against the K7 prefill of the same
+     prompt on the same weights, as in phase g), then a prefill through K7 at head dim 128 (granite-8b at 32 768
+     tokens, command-r at its 8 192-token ``max_seq_len``), held against
+     the plain chunked prefill; K7 at granite-8b's layer shape (1,
+     32 768, 32, 128) with 8 kv heads against its plain version and
+     timed beside ``scaled_dot_product_attention``;
+  p. deepseek-v2-236b at its published widths with its depth cut from
+     60 to 2 layers (the dense layer 0, then one MLA + MoE layer of 160
+     experts top-6 and 2 shared; 10.7 GB): ``launch/serve.main --direct``
+     with MLA's absorbed decode (batch 16, a 128-token prompt, 32
+     tokens), a 4 096-token prefill through the plain chunked attention
+     (MLA has no K7 route), and the absorbed decode against the
+     un-absorbed prefill in float32 with no drops, as in phase m.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -165,8 +201,10 @@ block step of phase d against the plain masked step; one fused step of
 phase e against the unfused optimizer's step; the first step of phase f
 against the same step with the plain ``_adam_math``; the decode's and
 the K7 prefill's logits against their references within the bf16 logit
-tolerance below.  The flash attention kernel is also held against its
-plain version at the prefill's layer shape (bf16: every element within
+tolerance below, and phases m and p's float32 decodes against their
+prefills within F32_LOGIT_REL_RMS and F32_LOGIT_MAX_FRAC.  The flash
+attention kernel is also held against its plain version at the
+prefill's layer shapes (D 64 and 128; bf16: every element within
 rtol 1e-2 plus a small atol, and every query row of every head within
 1e-2 relative L2 error; see K7_BF16_RTOL) and on small float32
 (rtol/atol 2e-5) and bf16 cases (non-causal, ragged S, causal S_q < S_k,
@@ -191,8 +229,9 @@ limit, and as the last line
 Run from the repository root: ``python3 chip_smoke.py``.  Without CUDA,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  ``--scale 0.001`` rehearses the phases on the card on smaller
-tensors (phases e-h and i-k on the smoke configs), prints no result
-and exits 2.
+tensors (phases e-h, i-k and m-p on the smoke configs), prints no
+result and exits 2.  ``scripts/torch_lm_rehearsal.py`` rehearses phases
+m, n and p on the CPU through ``lm_family_phases``, as ``main`` runs them.
 """
 
 from __future__ import annotations
@@ -222,6 +261,8 @@ ULP_BUDGET = 1  # plain vs kernel: same operation order, correctly rounded
 QWEN_BATCH, QWEN_SEQ, QWEN_LR = 8, 512, 3e-4
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 128
 PREFILL_SEQ = 32768  # the prefill_32k cell (repro/arch.py), batch cut to 1
+CMDR_LAYERS = 6  # command-r-plus-104b's depth cut (64 layers: 208 GB bf16)
+DS_LAYERS = 2  # deepseek-v2-236b's: the dense layer and one MLA + MoE layer
 DLRM_STEPS = 10
 # K7 against its plain version.  float32 (the SIMT kernel): rtol = atol =
 # 2e-5, the reference kernel tests' own.  bfloat16 (the Hopper kernel,
@@ -2324,9 +2365,11 @@ def k5_small_checks(device):
 
 
 # ------------------------------------------------------ the serving phases
-def logits_check(what, got, want):
-    """The bf16 logit tolerance (LOGIT_REL_RMS, LOGIT_MAX_FRAC); returns
-    the numbers it compared."""
+def logits_check(what, got, want, rel_rms=None, max_frac=None):
+    """The bf16 logit tolerance (LOGIT_REL_RMS, LOGIT_MAX_FRAC, or the
+    limits given); returns the numbers it compared."""
+    rel_rms = LOGIT_REL_RMS if rel_rms is None else rel_rms
+    max_frac = LOGIT_MAX_FRAC if max_frac is None else max_frac
     got, want = got.float(), want.float()
     d = got - want
     out = dict(max_abs=float(d.abs().max()),
@@ -2335,11 +2378,11 @@ def logits_check(what, got, want):
                argmax_agree=float((got.argmax(-1) == want.argmax(-1))
                                   .float().mean()))
     if not (all(np.isfinite([out["max_abs"], out["rel_rms"]]))
-            and out["rel_rms"] <= LOGIT_REL_RMS
-            and out["max_abs"] <= LOGIT_MAX_FRAC * out["max_ref"]):
-        raise AssertionError(f"{what}: logits outside the bf16 tolerance "
-                             f"(rel RMS <= {LOGIT_REL_RMS}, max abs <= "
-                             f"{LOGIT_MAX_FRAC} x max |ref|): {out}")
+            and out["rel_rms"] <= rel_rms
+            and out["max_abs"] <= max_frac * out["max_ref"]):
+        raise AssertionError(f"{what}: logits outside the tolerance (rel "
+                             f"RMS <= {rel_rms}, max abs <= {max_frac} x "
+                             f"max |ref|): {out}")
     return out
 
 
@@ -2486,12 +2529,14 @@ def serve_phase(cfg, device, wrappers, batch, prompt_len, gen_len):
     return counts, served
 
 
-def prefill_phase(cfg, params, device, wrappers, seq):
-    """Phase h: 3 prefills through K7 at ``seq``, then the same prefill
-    through the plain chunked attention; returns the counters."""
+def prefill_phase(what, cfg, params, device, wrappers, seq, runs=3):
+    """Phases h, m, n and p: ``make_prefill`` of one seeded (1, ``seq``)
+    prompt, ``runs`` times (its default route: K7 once a GQA layer a run,
+    none for MLA), then, where that route is K7, the same prefill through
+    the plain chunked attention, held within the bf16 logit tolerance.
+    Returns the launch counts."""
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(cfg, attn_chunk_k=1024)  # prefill_32k cell
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
                                          dtype=np.int32)).to(device)
@@ -2500,43 +2545,56 @@ def prefill_phase(cfg, params, device, wrappers, seq):
     torch.cuda.reset_peak_memory_stats()
     reset_counters(wrappers)
     times = []
-    for _ in range(3):
+    for _ in range(runs):
         t0 = time.perf_counter()
         logits = prefill(params, toks)
         sync(device)
         times.append(time.perf_counter() - t0)
     counts = read_counters(wrappers)
     peak = torch.cuda.max_memory_allocated()
-    if counts["flash_attention"] != 3 * cfg.n_layers:
-        raise AssertionError(f"phase h: {counts['flash_attention']} K7 "
-                             f"launches for 3 prefills of {cfg.n_layers} "
-                             f"layers")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    plain = tf.make_prefill(cfg, attention="plain")(params, toks)
-    sync(device)
-    plain_s = time.perf_counter() - t0
-    plain_peak = torch.cuda.max_memory_allocated()
-    if read_counters(wrappers)["flash_attention"] != counts["flash_attention"]:
-        raise AssertionError("phase h: the plain prefill launched K7")
-    check = logits_check("phase h K7 vs chunked prefill", logits, plain)
+    flash = cfg.mla is None
+    want_k7 = runs * cfg.n_layers if flash else 0
+    if counts["flash_attention"] != want_k7:
+        raise AssertionError(f"{what}: {counts['flash_attention']} K7 "
+                             f"launches for {runs} prefills, expected "
+                             f"{want_k7}")
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: bad logits {tuple(logits.shape)}")
+    extra = ""
+    if flash:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plain = tf.make_prefill(cfg, attention="plain")(params, toks)
+        sync(device)
+        plain_s = time.perf_counter() - t0
+        if read_counters(wrappers)["flash_attention"] != want_k7:
+            raise AssertionError(f"{what}: the plain prefill launched K7")
+        check = logits_check(f"{what} K7 vs chunked prefill", logits, plain)
+        extra = (f" chunked_attention_prefill_s={plain_s:.3f} (peak "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB) "
+                 f"k7_vs_chunked: {fmt_check(check)}")
+        del plain
     med = statistics.median(times)
-    print(f"phase h (Qwen prefill, seq={seq} batch=1, K7): prefill_s_median="
-          f"{med:.3f} prefill_s={[round(t, 3) for t in times]} tokens_per_s="
-          f"{seq / med:.0f} k7_per_prefill={counts['flash_attention'] // 3} "
-          f"counters={counts} max_memory_allocated_gb={peak / 1e9:.2f} "
-          f"chunked_attention_prefill_s={plain_s:.3f} (peak "
-          f"{plain_peak / 1e9:.2f} GB) k7_vs_chunked: {fmt_check(check)}",
-          flush=True)
+    print(f"{what} (make_prefill, seq={seq} batch=1, "
+          f"{'K7' if flash else 'plain chunked attention'}, attn_chunk_k="
+          f"{cfg.attn_chunk_k} moe_groups={cfg.moe_groups}): "
+          f"prefill_s_median={med:.3f} prefill_s="
+          f"{[round(t, 3) for t in times]} tokens_per_s={seq / med:.0f} "
+          f"counters={counts} max_memory_allocated_gb={peak / 1e9:.2f}"
+          f"{extra}", flush=True)
+    del logits
+    free_device()
     return counts
 
 
-def k7_bound(b, s, h, d, elem):
+def k7_bound(b, s, h, d, elem, hk=None):
     """Least time for one causal K7 call: every (query, visible key) pair
-    costs 4 D operations (q.k and p.v), S (S + 1) / 2 pairs per head; the
-    bytes are q, k, v read once and o written once."""
+    costs 4 D operations (q.k and p.v), S (S + 1) / 2 pairs per query
+    head; the bytes are q, k, v (``hk`` kv heads, default ``h``) read once
+    and o written once."""
+    hk = h if hk is None else hk
     flops = 4 * d * b * h * s * (s + 1) / 2
-    return bound_ms(4 * b * s * h * d * elem, flops, BF16_FLOPS)
+    return bound_ms(2 * b * s * (h + hk) * d * elem, flops, BF16_FLOPS)
 
 
 def k7_compare(kern: torch.Tensor, plain: torch.Tensor) -> dict:
@@ -2559,27 +2617,31 @@ def fmt_k7(c: dict) -> str:
             f"{c['max_row_rel']:.4e} (limit {K7_ROW_REL:g})")
 
 
-def k7_path_inputs(device, shape):
-    """q, k, v (bf16, N(0, 1), seeded) at one layer's prefill shape."""
+def k7_path_inputs(device, shape, hk=None):
+    """q, k, v (bf16, N(0, 1), seeded) at one layer's prefill shape, k and
+    v with ``hk`` heads (default q's)."""
+    b, s, h, d = shape
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
-    return tuple(torch.randn(shape, generator=gen, device=device
-                             ).to(torch.bfloat16) for _ in range(3))
+    return tuple(torch.randn(sh, generator=gen, device=device
+                             ).to(torch.bfloat16)
+                 for sh in (shape, (b, s, hk or h, d), (b, s, hk or h, d)))
 
 
-def k7_entry(device, shape):
-    """K7 at one layer's prefill shape (bf16, causal) against its plain
-    version, timed beside the plain version and
+def k7_entry(device, shape, hk=None):
+    """K7 at one layer's prefill shape (bf16, causal; ``hk`` kv heads for
+    GQA) against its plain version, timed beside the plain version and
     ``scaled_dot_product_attention`` on the same tensors."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
     b, s, h, d = shape
-    q, k, v = k7_path_inputs(device, shape)
+    q, k, v = k7_path_inputs(device, shape, hk)
     kern = fa_ops.flash_attention(q, k, v, causal=True)
     plain = fa_ref.flash_attention_plain(q, k, v, causal=True)
     cmp = k7_compare(kern, plain)
-    print(f"K7 at {shape} bf16 causal vs plain: {fmt_k7(cmp)}", flush=True)
+    print(f"K7 at {shape} kv heads {hk or h} bf16 causal vs plain: "
+          f"{fmt_k7(cmp)}", flush=True)
     if not cmp["ok"]:
         raise AssertionError(f"K7 differs from its plain version at {shape}: "
                              f"{fmt_k7(cmp)}")
@@ -2590,14 +2652,16 @@ def k7_entry(device, shape):
     plain_ms = time_ms(lambda: fa_ref.flash_attention_plain(q, k, v),
                        device, reps=3, warmup=1, inner=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = {"enable_gqa": True} if hk else {}
     library_ms = time_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True),
+                                                       is_causal=True, **gqa),
                          device)
-    bnd, by = k7_bound(b, s, h, d, 2)
+    bnd, by = k7_bound(b, s, h, d, 2, hk)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                 library_ms=library_ms, max_abs_err=err, max_ulp=None,
-                shape=f"(B,S,H,D)={shape} bf16 causal")
+                shape=f"(B,S,H,D)={shape}"
+                      + (f" HK={hk}" if hk else "") + " bf16 causal")
 
 
 def k7_small_checks(device):
@@ -3078,6 +3142,391 @@ def k6_entries(device, tables, id_sets, full):
     return main
 
 
+# --------------------------------------- phases m, n, p: the LM family
+# Decode vs prefill in float32 with no capacity drops: the two forwards
+# round in different places only, about float32's unit roundoff (6e-8)
+# per product and layer; 1e-4 relative RMS allows a thousand times the
+# residual stream's drift over these depths.  A routing decision that
+# flips between them (a near tie in a router's top-k) moves a token's FFN
+# output by a gate's share of an expert's output; the flips are counted.
+F32_LOGIT_REL_RMS, F32_LOGIT_MAX_FRAC = 1e-4, 1e-3
+
+
+class RouteRecorder:
+    """While entered, records the expert ids (T, k) of every
+    ``repro_torch.models.moe.route`` call, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.real, self.idx = moe, moe.route, []
+
+        def recording(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            self.idx.append(out[1])
+            return out
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.real
+
+
+def routing_flips(prefill_idx, decode_idx, batch, seq) -> int:
+    """(token, MoE layer) routing decisions whose top-k expert set differs
+    between one prefill of (batch, seq) tokens and ``seq`` decode steps of
+    ``batch``: the prefill's calls are one a layer over all tokens, the
+    decode's one a layer a step."""
+    n_moe = len(prefill_idx)
+    if len(decode_idx) != seq * n_moe:
+        raise AssertionError(f"{len(decode_idx)} decode routings for {seq} "
+                             f"steps of {n_moe} MoE layers")
+    flips = 0
+    for layer, pre in enumerate(prefill_idx):
+        pre = pre.reshape(batch, seq, -1).sort(-1).values
+        for i in range(seq):
+            dec = decode_idx[i * n_moe + layer].sort(-1).values
+            flips += int((dec != pre[:, i]).any(-1).sum())
+    return flips
+
+
+def lm_config(arch, full, **overrides):
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(arch) if full else registry.get_smoke_config(
+        arch)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def seeded_params(cfg, device, seed=0):
+    """``init_params`` from a ``torch.Generator`` on the device seeded
+    with ``seed`` (``launch/serve.main``'s weights at seed 0)."""
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return tf.init_params(cfg, gen, device)
+
+
+def free_device():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_main_phase(what, argv, device, wrappers, batch, gen_len, vocab):
+    """``launch/serve.main`` on its normal path (``argv`` picks the arch,
+    the shapes, ``--direct`` and ``--layers``): the tokens checked, its
+    decode time and peak memory printed.  Returns the launch counts and
+    the last prompt step's logits."""
+    from repro_torch.launch import serve
+
+    if device.type == "cpu":
+        argv = argv + ["--device", "cpu"]
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_counters(wrappers)
+    tokens = out["tokens"]
+    if tokens.shape != (batch, gen_len) or not (
+            (tokens >= 0) & (tokens < vocab)).all():
+        raise AssertionError(f"{what}: bad tokens {tuple(tokens.shape)}")
+    if not torch.isfinite(out["prompt_logits"]).all():
+        raise AssertionError(f"{what}: non-finite prompt logits")
+    step_ms = out["gen_s"] * 1e3 / (gen_len - 1)
+    print(f"{what} (launch/serve.main {' '.join(argv)}): decode_ms_per_step="
+          f"{step_ms:.3f} tokens_per_s={batch / step_ms * 1e3:.0f} "
+          f"counters={counts} max_memory_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} first_tokens="
+          f"{tokens[0, :8].tolist()} seconds={seconds:.1f}", flush=True)
+    prompt_logits = out["prompt_logits"]
+    del out
+    free_device()
+    return counts, prompt_logits
+
+
+def decode_vs_prefill_f32(what, cfg, device, batch, seq):
+    """The model in float32 with a capacity factor of E / k (no token
+    dropped by capacity): ``seq`` decode steps of a seeded (batch, seq)
+    prompt against its prefill's last-token logits, within the float32
+    limits above; the routing decisions that differ are counted and
+    printed."""
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(
+        cfg, dtype="float32",
+        moe_capacity_factor_override=cfg.moe.n_experts / cfg.moe.top_k)
+    params = seeded_params(cfg, device, seed=3)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
+                                         dtype=np.int32)).to(device)
+    t0 = time.perf_counter()
+    with RouteRecorder() as pre_routes:
+        pre = tf.make_prefill(cfg)(params, toks)
+    cache = tf.init_kv_cache(cfg, batch, seq, device=device)
+    step = tf.make_serve_step(cfg)
+    with RouteRecorder() as dec_routes:
+        for i in range(seq):
+            logits, cache = step(params, cache, toks[:, i:i + 1])
+    sync(device)
+    flips = routing_flips(pre_routes.idx, dec_routes.idx, batch, seq)
+    decisions = batch * seq * len(pre_routes.idx)
+    check = logits_check(f"{what} float32 decode vs prefill, no drops",
+                         logits, pre, F32_LOGIT_REL_RMS, F32_LOGIT_MAX_FRAC)
+    print(f"{what} float32 decode vs prefill (batch={batch} seq={seq}, "
+          f"capacity factor {cfg.moe_capacity_factor_override:g}: no drops"
+          f"{', MLA absorbed vs un-absorbed' if cfg.mla else ''}): "
+          f"max_abs={check['max_abs']:.3e} rel_rms={check['rel_rms']:.3e} "
+          f"(limits {F32_LOGIT_REL_RMS:g} relative RMS, "
+          f"{F32_LOGIT_MAX_FRAC:g} x max_ref) max_ref={check['max_ref']:.3f}"
+          f" argmax_agree={check['argmax_agree']:.4f} routing_flips={flips}"
+          f" of {decisions} decisions seconds="
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    del params, cache, pre, logits
+    free_device()
+    return flips
+
+
+class FirstStepTwin:
+    """An optimizer whose first ``step`` is held bit for bit against the
+    same step through K5's plain version (``aggregate_adam_plain``) on
+    clones of its inputs; every step is the wrapped optimizer's."""
+
+    def __init__(self, opt, lr, **kw):
+        self.opt, self.lr, self.kw, self.checked = opt, lr, kw, None
+        self.init = opt.init
+
+    def step(self, params, grads, state):
+        if self.checked is not None:
+            return self.opt.step(params, grads, state)
+        from repro_torch.kernels.agg_adam import ops as agg_ops
+        from repro_torch.kernels.agg_adam import ref as agg_ref
+        from repro_torch.tree import tree_leaves_by_key
+
+        leaves = [tree_leaves_by_key(t) for t in
+                  (params, grads, state.mu, state.nu)]
+        twin = {k: [t[k].clone() for t in leaves] for k in leaves[0]}
+        new_params, new_state = self.opt.step(params, grads, state)
+        device = next(iter(twin.values()))[0].device
+        hp = agg_ops.multi_job_hp([state.count + 1], lr=self.lr,
+                                  **self.kw).to(device)
+        got = [tree_leaves_by_key(t) for t in
+               (new_params, new_state.mu, new_state.nu)]
+        for k, (p, g, mu, nu) in twin.items():
+            agg_ref.aggregate_adam_plain(p, g.contiguous(), mu, nu, hp)
+            for name, want, have in zip(("p", "mu", "nu"), (p, mu, nu), got):
+                if not bits_equal(have[k], want):
+                    raise AssertionError(
+                        f"phase m: the first step's {k} {name} differs from "
+                        f"K5's plain version (max abs "
+                        f"{max_abs(have[k].float(), want.float())})")
+        self.checked = len(twin)
+        del twin
+        return new_params, new_state
+
+
+def moe_train_phase(cfg, device, wrappers, steps=5):
+    """Phase m's training: ``make_train_step`` with ``adam(3e-4,
+    fused=True)`` for ``steps`` steps at 8 x 512, K5 once a leaf a step,
+    the first step held bit for bit against its plain-kernel twin.
+    Returns the launch counts."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.tree import tree_leaves_by_key
+
+    t_start = time.perf_counter()
+    params = seeded_params(cfg, device)
+    opt = FirstStepTwin(adam(QWEN_LR, fused=True), QWEN_LR, b1=0.9,
+                        b2=0.999, eps=1e-8, wd=0.0)
+    step = tf.make_train_step(cfg, opt)
+    state = {"params": params, "opt": opt.init(params)}
+    batches = qwen_batches(cfg, steps, 0, device)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(step, state, batches, device)
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(tree_leaves_by_key(params))
+    if counts["agg_adam_dense"] != steps * n_leaves:
+        raise AssertionError(f"phase m: {counts['agg_adam_dense']} launches "
+                             f"of K5 for {steps} steps of {n_leaves} leaves")
+    if opt.checked != n_leaves:
+        raise AssertionError("phase m: the first step was not checked")
+    check_losses("m", losses)
+    print(qwen_line(f"m ({cfg.name}, make_train_step, fused adam)", times,
+                    losses, counts, peak,
+                    f" (peak with the first step's twin) params="
+                    f"{cfg.param_count} active={cfg.active_param_count} "
+                    f"k5_per_step={counts['agg_adam_dense'] // steps} "
+                    f"first_step_vs_plain_k5=bit-exact leaves={n_leaves} "
+                    f"seconds={time.perf_counter() - t_start:.1f}"),
+          flush=True)
+    del state, params, batches
+    free_device()
+    return counts
+
+
+def merge_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def moe_phase(device, wrappers, full):
+    """Phase m: granite-moe-1b-a400m whole (bf16): training, serving
+    through the read tier, the prefill_32k prefill through K7 against
+    the chunked one, decode vs prefill in float32 with no drops.  Returns
+    the launch counts of its main path (training, serving, K7 prefill)."""
+    t_start = time.perf_counter()
+    arch = "granite-moe-1b-a400m"
+    cfg = lm_config(arch, full)
+    print(f"phase m config: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} experts={cfg.moe.n_experts} top_k={cfg.moe.top_k} "
+          f"expert_ff={cfg.moe.d_ff} vocab={cfg.vocab} dtype={cfg.dtype} "
+          f"params={cfg.param_count} active={cfg.active_param_count}",
+          flush=True)
+    train = moe_train_phase(cfg, device, wrappers)
+    b, p, g = ((SERVE_BATCH, SERVE_PROMPT, SERVE_GEN) if full
+               else (4, 16, 16))
+    serve_counts, _ = serve_main_phase(
+        "phase m serve", ["--arch", arch, "--batch", str(b), "--prompt-len",
+                          str(p), "--gen", str(g)]
+        + ([] if full else ["--smoke"]),
+        device, wrappers, b, g, cfg.vocab)
+    seq = PREFILL_SEQ if full else 512
+    params = seeded_params(cfg, device)
+    pre = prefill_phase(
+        "phase m prefill", dataclasses.replace(
+            cfg, attn_chunk_k=1024, moe_groups=256, max_seq_len=seq),
+        params, device, wrappers, seq, runs=2)
+    del params
+    free_device()
+    flips = decode_vs_prefill_f32("phase m", cfg, device, 4, 64 if full
+                                  else 16)
+    counts = merge_counts(train, serve_counts, pre)
+    print(f"phase m ({cfg.name}): counters={counts} "
+          f"k5={counts['agg_adam_dense']} k7={counts['flash_attention']} "
+          f"routing_flips={flips} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
+
+
+def dense_phase(device, wrappers, full):
+    """Phase n: granite-8b whole and command-r-plus-104b at full widths
+    with its depth cut to 6 layers (bf16, ``--direct``): decode at batch
+    16 through ``launch/serve.main``, its last prompt step held against
+    the K7 prefill of the same prompt on the same weights, as phase g
+    holds Qwen's; then a prefill through K7 at head dim 128 against the
+    chunked one (granite-8b at prefill_32k's 32 768 tokens, command-r at
+    its 8 192-token ``max_seq_len``).  Returns the launch counts."""
+    from repro_torch.models import transformer as tf
+
+    t_start = time.perf_counter()
+    b, p, g = ((SERVE_BATCH, SERVE_PROMPT, SERVE_GEN) if full
+               else (4, 16, 16))
+    counts = []
+    for arch, layers, seq in (("granite-8b", None, PREFILL_SEQ),
+                              ("command-r-plus-104b", CMDR_LAYERS, 8192)):
+        cfg = lm_config(arch, full)
+        argv = ["--arch", arch, "--direct", "--batch", str(b),
+                "--prompt-len", str(p), "--gen", str(g)]
+        if layers is not None and full:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+            argv += ["--layers", str(layers)]
+        if not full:
+            argv.append("--smoke")
+            seq = 512
+        print(f"phase n config: {cfg.name} layers={cfg.n_layers} d_model="
+              f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+              f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} params="
+              f"{cfg.param_count}", flush=True)
+        serve_counts, served_logits = serve_main_phase(
+            f"phase n serve {arch}", argv, device, wrappers, b, g, cfg.vocab)
+        counts.append(serve_counts)
+        params = seeded_params(cfg, device)  # serve.main's, seed 0
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (b, p), dtype=np.int32)).to(device)  # and its prompt
+        check = logits_check(f"phase n {arch} decode vs K7 prefill",
+                             served_logits, tf.make_prefill(cfg)(params,
+                                                                 prompt))
+        print(f"phase n {arch} decode vs K7 prefill (batch={b} prompt={p}): "
+              f"{fmt_check(check)}", flush=True)
+        del served_logits, prompt
+        counts.append(prefill_phase(
+            f"phase n prefill {arch}", dataclasses.replace(
+                cfg, attn_chunk_k=1024, max_seq_len=seq), params, device,
+            wrappers, seq, runs=2))
+        del params
+        free_device()
+    counts = merge_counts(*counts)
+    print(f"phase n (granite-8b, command-r-plus-104b x{CMDR_LAYERS} layers):"
+          f" counters={counts} k7={counts['flash_attention']} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
+
+
+def mla_phase(device, wrappers, full):
+    """Phase p: deepseek-v2-236b at full widths, its depth cut to 2 layers
+    (the dense layer 0 and one MLA + MoE layer of all 160 experts; bf16,
+    ``--direct``): absorbed decode through ``launch/serve.main``, a 4 096-
+    token prefill through the plain chunked attention (MLA has no K7
+    route), and the absorbed decode against the un-absorbed prefill in
+    float32 with no drops.  Returns the launch counts."""
+    t_start = time.perf_counter()
+    arch = "deepseek-v2-236b"
+    cfg = lm_config(arch, full, **({"n_layers": DS_LAYERS} if full else {}))
+    print(f"phase p config: {cfg.name} layers={cfg.n_layers} "
+          f"(first_k_dense={cfg.first_k_dense}) d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} mla={cfg.mla} experts={cfg.moe.n_experts} "
+          f"top_k={cfg.moe.top_k} shared_ff={cfg.moe.d_ff_shared} vocab="
+          f"{cfg.vocab} params={cfg.param_count}", flush=True)
+    b, p, g = (SERVE_BATCH, SERVE_PROMPT, 32) if full else (4, 16, 8)
+    argv = ["--arch", arch, "--direct", "--batch", str(b), "--prompt-len",
+            str(p), "--gen", str(g)]
+    argv += ["--layers", str(DS_LAYERS)] if full else ["--smoke"]
+    serve_counts, _ = serve_main_phase("phase p serve", argv, device, wrappers,
+                                    b, g, cfg.vocab)
+    seq = 4096 if full else 256
+    params = seeded_params(cfg, device)
+    pre = prefill_phase(
+        "phase p prefill", dataclasses.replace(cfg, attn_chunk_k=1024,
+                                               max_seq_len=seq),
+        params, device, wrappers, seq, runs=1)
+    del params
+    free_device()
+    flips = decode_vs_prefill_f32("phase p", cfg, device, 4, 32 if full
+                                  else 16)
+    counts = merge_counts(serve_counts, pre)
+    if any(counts.values()):
+        raise AssertionError(f"phase p launched a kernel: {counts} (MLA "
+                             f"runs no K7; serving runs no tick)")
+    print(f"phase p ({cfg.name} x{cfg.n_layers} layers): counters={counts} "
+          f"routing_flips={flips} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
+
+
+def lm_family_phases(device, wrappers, full, entries):
+    """Phases m, n and p, each model freed before the next, and K7 at
+    granite-8b's layer shape (head dim 128) between n and p, added to
+    ``entries`` as ``flash_attention:d128``.  Returns the three phases'
+    launch counts."""
+    counts_m = moe_phase(device, wrappers, full)
+    _require(counts_m, ("agg_adam_dense", "flash_attention"), "m")
+    counts_n = dense_phase(device, wrappers, full)
+    _require(counts_n, ("flash_attention",), "n")
+    g8b = lm_config("granite-8b", True)  # its layer at the prefill length
+    seq = PREFILL_SEQ if full else 512
+    entries["flash_attention:d128"] = k7_entry(
+        device, (1, seq, g8b.n_heads, g8b.head_dim), hk=g8b.n_kv_heads)
+    free_device()
+    counts_p = mla_phase(device, wrappers, full)
+    return counts_m, counts_n, counts_p
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3290,7 +3739,9 @@ def main() -> int:
     counts_g, served = serve_phase(cfg, device, wrappers, *serve_shape)
     _require(counts_g, ("agg_adam_multijob_fused", "flash_attention"), "g")
     add_totals(counts_g)
-    counts_h = prefill_phase(cfg, served, device, wrappers, seq)
+    counts_h = prefill_phase(
+        "phase h (Qwen prefill)", dataclasses.replace(cfg, attn_chunk_k=1024),
+        served, device, wrappers, seq)  # the prefill_32k cell
     _require(counts_h, ("flash_attention",), "h")
     add_totals(counts_h)
     del served
@@ -3322,6 +3773,13 @@ def main() -> int:
     if any(read_counters(wrappers).values()):
         raise AssertionError("phase k launched a kernel: SASRec and DIEN "
                              "run none in either package")
+    free_device()
+
+    # ---- phases m, n and p: the rest of the LM family
+    counts_m, counts_n, counts_p = lm_family_phases(device, wrappers, full,
+                                                    entries)
+    for counts in (counts_m, counts_n, counts_p):
+        add_totals(counts)
 
     # ---- report
     k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
@@ -3340,9 +3798,9 @@ def main() -> int:
         "relayout_scatter": (
             rl_src, "src/repro/kernels/relayout/kernel.py:48",
             totals["relayout_scatter"]),
-        "agg_adam_dense:embed": (
+        "agg_adam_dense:embed": (  # bf16 leaves: phases e and m
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
-            counts_e["agg_adam_dense"]),
+            counts_e["agg_adam_dense"] + counts_m["agg_adam_dense"]),
         "agg_adam_dense:ps_flat": (
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
             counts_f["agg_adam_dense"]),
@@ -3352,7 +3810,12 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
             "src/repro/kernels/flash_attn/kernel.py:65",
-            counts_h["flash_attention"]),  # phase h: at the entry's shape
+            counts_g["flash_attention"] + counts_h["flash_attention"]
+            + counts_m["flash_attention"]),  # head dim 64: g, h and m
+        "flash_attention:d128": (
+            "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn/kernel.py:65",
+            counts_n["flash_attention"]),  # phase n: head dim 128
         "embed_bag": (
             "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
             "src/repro/kernels/embed_bag/kernel.py:34",

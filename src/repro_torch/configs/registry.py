@@ -31,8 +31,9 @@ FAMILIES: Dict[str, str] = {
     "dlrm-rm2": "recsys", "sasrec": "recsys", "dien": "recsys",
     "dlrm-mlperf": "recsys",
 }
-PORTED = frozenset({"qwen1.5-0.5b", "dlrm-rm2", "sasrec", "dien",
-                    "dlrm-mlperf"})
+PORTED = frozenset({"command-r-plus-104b", "qwen1.5-0.5b", "granite-8b",
+                    "granite-moe-1b-a400m", "deepseek-v2-236b", "dlrm-rm2",
+                    "sasrec", "dien", "dlrm-mlperf"})
 
 
 def _module(arch: str):
@@ -41,7 +42,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"arch {arch!r} ({FAMILIES[arch]}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 15)")
+            f"(ROADMAP.md, Queue 1 item 15, part 4)")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

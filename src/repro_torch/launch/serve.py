@@ -12,14 +12,22 @@ the decode loop runs on a replica-served pull, checked bit for bit
 against the hosted weights before any token is generated (the service
 hosts float32; bf16 weights round-trip bf16 -> float32 -> bf16
 losslessly).  ``--direct`` skips the service and decodes straight off
-``init_params``.  Runs on ``cuda:0`` unless ``--device cpu``; the lm
-family only (gnn and recsys archs are not ported yet, ROADMAP.md,
-Queue 1 item 15).
+``init_params``: a model whose float32 hosting (the service's flat, mu
+and nu, 12 bytes a parameter, beside the weights) does not fit the card
+must take it (granite-8b: about 97 GB hosted), and hosting refuses it.
+``--layers N`` keeps the first N layers of a model too deep for one
+card, its widths unchanged.  Runs on ``cuda:0`` unless ``--device
+cpu``; every lm arch (dense, MoE, MLA with its absorbed decode) and no
+other family.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+      --direct --batch 16 --prompt-len 128 --gen 128
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import time
 from typing import Dict, List, Optional
@@ -37,6 +45,24 @@ from ..tree import (tree_leaves, tree_leaves_by_key, tree_map,
 def _no_loss(params, batch):
     raise NotImplementedError("the hosted serving job only serves its "
                               "weights: it has no training loss")
+
+
+HOSTED_BYTES_PER_PARAM = 12  # the service's float32 flat, mu and nu
+
+
+def _check_hosting_fits(params, device) -> None:
+    """Refuse a float32 hosting that cannot fit the card beside the
+    weights (pass ``--direct``)."""
+    if device.type != "cuda":
+        return
+    n = sum(t.numel() for t in tree_leaves(params))
+    need = n * HOSTED_BYTES_PER_PARAM
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise ValueError(
+            f"hosting {n} parameters as a float32 service job needs "
+            f"{need / 1e9:.1f} GB, the card has {free / 1e9:.1f} GB free: "
+            f"pass --direct")
 
 
 def _pull_params_via_replicas(params, n_replicas: int,
@@ -136,21 +162,34 @@ def main(argv=None, params=None) -> Dict[str, object]:
     ap.add_argument("--direct", action="store_true",
                     help="skip the parameter service's read tier and "
                          "decode straight off init_params")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (the leading dense ones "
+                         "included), widths unchanged")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if registry.family(args.arch) != "lm":
+    family = registry.family(args.arch)
+    if family == "gnn":
         raise NotImplementedError(
-            f"arch {args.arch!r} ({registry.family(args.arch)}) is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 15)")
+            f"arch {args.arch!r} (gnn) is not ported yet (ROADMAP.md, "
+            f"Queue 1 item 15, part 4)")
+    if family != "lm":
+        raise ValueError(f"{args.arch} is not an LM; serve decodes LM archs")
     device = resolve_device(args.device)
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
+    if args.layers is not None:
+        if not cfg.first_k_dense < args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers, {cfg.first_k_dense} "
+                             f"of them leading dense ones")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
         params = tf.init_params(cfg, gen, device)
     if not args.direct:
+        _check_hosting_fits(params, device)
         params, rs = _pull_params_via_replicas(params, args.replicas)
         st = rs.replicas[0].stats
         print(f"[serve] weights read through {len(rs.replicas)} pull "

@@ -13,8 +13,10 @@ device seeded with 0.  Runs on ``cuda:0`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
       --steps 10 --batch 65536
 
-The lm and recsys families run; gnn archs are not ported yet (ROADMAP.md,
-Queue 1 item 15).
+Every lm arch (dense, MoE and MLA) and the recsys family run; the gnn
+arch is not ported yet (ROADMAP.md, Queue 1 item 15, part 4).  No full
+LM but Qwen1.5-0.5B and granite-moe-1b-a400m has a training state that
+fits one 80 GB card.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def build(arch: str, smoke: bool, batch: int, seq: int, device=None):
     if fam not in ("lm", "recsys"):
         raise NotImplementedError(
             f"arch {arch!r} ({fam}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 15)")
+            f"(ROADMAP.md, Queue 1 item 15, part 4)")
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     cfg = registry.get_smoke_config(arch) if smoke else registry.get_config(arch)

@@ -1,4 +1,5 @@
-"""Models of the port (``repro.models``): the dense decoder-only LM
-(``transformer``) with its layers and attention, and the recsys family
-(``recsys``: DLRM, SASRec, DIEN and the system EmbeddingBag).  MoE, MLA
-and GNN models are not ported yet (ROADMAP.md, Queue 1 item 15)."""
+"""Models of the port (``repro.models``): the decoder-only LM
+(``transformer``: GQA and MLA attention, dense and MoE FFNs) with its
+layers, attention and MoE FFN (``moe``), and the recsys family
+(``recsys``: DLRM, SASRec, DIEN and the system EmbeddingBag).  The GNN
+is not ported yet (ROADMAP.md, Queue 1 item 15, part 4)."""

@@ -1,24 +1,28 @@
-"""Decoder-only LM, dense path (``repro.models.transformer``).
+"""Decoder-only LM (``repro.models.transformer``): the five LM
+architectures of the reference.
 
-GQA with optional QKV bias, RoPE, RMS/LayerNorm, the parallel
-attention+FFN block, tied or separate unembedding, the layers kept as
-stacked ``(L, ...)`` leaves (the reference's ``lax.scan`` layout) and run
-one at a time (remat through ``torch.utils.checkpoint`` when
-``cfg.remat``), microbatched gradient accumulation, the chunked
-cross-entropy, and serving: the KV-cache decode step (``init_kv_cache``,
+GQA with optional QKV bias, MLA compressed-KV attention with its
+absorbed decode (deepseek-v2), the MoE FFN with shared experts
+(``models/moe.py``; granite-moe, deepseek-v2) after ``first_k_dense``
+leading dense layers, RoPE, RMS/LayerNorm, the parallel attention+FFN
+block, tied or separate unembedding, the layers kept as stacked ``(L,
+...)`` leaves (the reference's ``lax.scan`` layout) and run one at a time
+(remat through ``torch.utils.checkpoint`` when ``cfg.remat``),
+microbatched gradient accumulation, the chunked cross-entropy, and
+serving: the KV-cache decode step (``init_kv_cache``,
 ``make_serve_step``) and the inference prefill (``make_prefill``), whose
-attention runs through the flash attention kernel K7.  Parameters are
+GQA attention runs through the flash attention kernel K7.  Parameters are
 plain nested dicts with the reference's leaf keys, shapes and dtypes, so
 weights carry across and ``build_flat_plan`` lays out both packages alike.
 
 One device: the reference's activation-sharding constraints
 (``act.constrain``) have nothing to do here.  Matrix products are
-``torch.einsum`` / ``@``, as the reference leaves them to XLA.  MoE and
-MLA are not ported yet (ROADMAP.md, Queue 1 item 15).
+``torch.einsum`` / ``@``, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -39,13 +43,18 @@ from .layers import (
     rope_row,
     silu,
 )
+from .moe import MoEConfig, init_moe_params, moe_ffn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 15)")
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -64,17 +73,24 @@ class LMConfig:
     norm: str = "rmsnorm"  # or "layernorm"
     rope_theta: float = 10000.0
     max_seq_len: int = 8192
-    moe: Optional[Any] = None  # MoE: not ported yet
-    first_k_dense: int = 0
-    mla: Optional[Any] = None  # MLA: not ported yet
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0  # leading layers use dense FFN even in MoE models
+    mla: Optional[MLAConfig] = None
     dtype: str = "float32"
     remat: bool = True
     loss_chunk: int = 512
     attn_chunk_k: int = 0  # 0 -> full attention; >0 -> online-softmax chunks
+    moe_capacity_factor_override: Optional[float] = None
+    moe_groups: int = 1  # GShard-style dispatch groups
 
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """Width the RoPE tables are built at: MLA's ``qk_rope_dim``."""
+        return self.mla.qk_rope_dim if self.mla else self.head_dim
 
     @property
     def padded_vocab(self) -> int:
@@ -92,12 +108,17 @@ class LMConfig:
         return sum(t.numel()
                    for t in tree_leaves(init_params(self, device="meta")))
 
-
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise _not_ported("the MoE FFN")
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
+    @property
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        total = self.param_count
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_ff
+        n_moe_layers = self.n_layers - self.first_k_dense
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return total - inactive
 
 
 # =============================================================== init
@@ -140,6 +161,22 @@ def _init_attn(cfg: LMConfig, init: _Init, lead) -> Dict[str, Any]:
     d, hq, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.torch_dtype
     s = d ** -0.5
+    if cfg.mla is not None:
+        m = cfg.mla
+        dqk = m.qk_nope_dim + m.qk_rope_dim
+        r, rq = m.kv_lora_rank, m.q_lora_rank
+        return {
+            "w_dq": init.normal(lead + (d, rq), s, dt),
+            "q_norm": init.full(lead + (rq,), 1.0, torch.float32),
+            "w_uq": init.normal(lead + (rq, hq, dqk), rq ** -0.5, dt),
+            "w_dkv": init.normal(lead + (d, r), s, dt),
+            "kv_norm": init.full(lead + (r,), 1.0, torch.float32),
+            "w_kr": init.normal(lead + (d, m.qk_rope_dim), s, dt),
+            "w_uk": init.normal(lead + (r, hq, m.qk_nope_dim), r ** -0.5, dt),
+            "w_uv": init.normal(lead + (r, hq, m.v_head_dim), r ** -0.5, dt),
+            "w_o": init.normal(lead + (hq, m.v_head_dim, d),
+                               (hq * m.v_head_dim) ** -0.5, dt),
+        }
     p = {
         "w_q": init.normal(lead + (d, hq, dh), s, dt),
         "w_k": init.normal(lead + (d, hk, dh), s, dt),
@@ -163,13 +200,20 @@ def _init_dense_ffn(cfg: LMConfig, init: _Init, lead) -> Dict[str, Any]:
     }
 
 
-def _init_layer(cfg: LMConfig, init: _Init, lead=()) -> Dict[str, Any]:
-    """One block's params; with ``lead = (L,)`` L blocks stacked."""
+def _init_layer(cfg: LMConfig, init: _Init, lead=(),
+                dense: bool = False) -> Dict[str, Any]:
+    """One block's params; with ``lead = (L,)`` L blocks stacked.  A
+    dense block (or any block of a config without MoE) has the dense FFN,
+    the others the MoE leaves."""
     p = {"ln1": _norm_params(cfg, init, lead, cfg.d_model),
          "attn": _init_attn(cfg, init, lead)}
     if not cfg.parallel_block:
         p["ln2"] = _norm_params(cfg, init, lead, cfg.d_model)
-    p["ffn"] = _init_dense_ffn(cfg, init, lead)
+    if dense or cfg.moe is None:
+        p["ffn"] = _init_dense_ffn(cfg, init, lead)
+    else:
+        p["moe"] = init_moe_params(init.normal, cfg.d_model, cfg.moe,
+                                   cfg.torch_dtype, lead)
     return p
 
 
@@ -181,7 +225,6 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     ``jax.random``'s: carry the reference's weights across with
     ``ps.runtime.tree_from_numpy`` to compare the two.  ``device="meta"``
     builds the shapes only."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     init = _Init(dev, generator)
     dt = cfg.torch_dtype
@@ -194,7 +237,7 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
         params["unembed"] = init.normal((cfg.d_model, cfg.padded_vocab),
                                         cfg.d_model ** -0.5, dt)
     for i in range(cfg.first_k_dense):
-        params[f"dense_layer_{i}"] = _init_layer(cfg, init)
+        params[f"dense_layer_{i}"] = _init_layer(cfg, init, dense=True)
     n_scan = cfg.n_layers - cfg.first_k_dense
     if n_scan > 0:
         params["layers"] = _init_layer(cfg, init, (n_scan,))
@@ -205,13 +248,33 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 # How the training/prefill path computes attention: "plain" is the
 # reference's choice by config (chunked above ``attn_chunk_k``, else full);
 # "flash" is the flash attention kernel K7 (forward only: the prefill).
+# K7 computes one head dim for q, k and v, so MLA (q/k wider than v) has
+# only the plain route.
 ATTENTION = ("plain", "flash")
+
+
+def _check_attention(cfg: LMConfig, attention: str) -> None:
+    if attention not in ATTENTION:
+        raise ValueError(f"attention must be one of {ATTENTION}, got "
+                         f"{attention!r}")
+    if attention == "flash" and cfg.mla is not None:
+        raise ValueError("attention='flash': MLA's q/k and v head dims "
+                         "differ and K7 takes one; MLA runs 'plain'")
+
+
+def _plain_attention(cfg: LMConfig, q, k, v, scale=None):
+    if cfg.attn_chunk_k and q.shape[1] > cfg.attn_chunk_k:
+        return attn_lib.chunked_attention(q, k, v, causal=True,
+                                          chunk_k=cfg.attn_chunk_k,
+                                          scale=scale)
+    return attn_lib.full_attention(q, k, v, causal=True, scale=scale)
 
 
 def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None,
                      attention: str = "plain"):
     """x: (B,S,d) -> (B,S,d). Training/prefill path."""
-    s = x.shape[1]
+    if cfg.mla is not None:
+        return _mla_attention(cfg, p, x, cos, sin, positions)
     q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
     k = torch.einsum("bsd,dhe->bshe", x, p["w_k"])
     v = torch.einsum("bsd,dhe->bshe", x, p["w_v"])
@@ -221,22 +284,51 @@ def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None,
     k = apply_rope(k, cos, sin, positions)
     if attention == "flash":
         o = attn_lib.flash_attention(q, k, v, causal=True)
-    elif cfg.attn_chunk_k and s > cfg.attn_chunk_k:
-        o = attn_lib.chunked_attention(q, k, v, causal=True,
-                                       chunk_k=cfg.attn_chunk_k)
     else:
-        o = attn_lib.full_attention(q, k, v, causal=True)
+        o = _plain_attention(cfg, q, k, v)
+    return torch.einsum("bshe,hed->bsd", o, p["w_o"])
+
+
+def _mla_attention(cfg: LMConfig, p, x, cos, sin, positions=None):
+    """MLA, un-absorbed (training and prefill): q through its low-rank
+    projection, k/v expanded from the compressed latent, ``k_rope``
+    shared by all heads; scale ``(nope + rope) ** -0.5``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])  # (B,S,H,nope+rope)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, cos, sin, positions)
+
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"])  # (B,S,r)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], cos, sin,
+                        positions)  # (B,S,1,rope)
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_heads,
+                                              m.qk_rope_dim)], dim=-1)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    o = _plain_attention(cfg, q_full, k_full, v, scale)
     return torch.einsum("bshe,hed->bsd", o, p["w_o"])
 
 
 def _ffn_block(cfg: LMConfig, p, x):
-    """Dense FFN on (B,S,d). Returns (out, aux_loss)."""
-    if "ffn" not in p:
-        raise _not_ported("the MoE FFN")
-    f = p["ffn"]
-    h = silu(x @ f["w_gate"]) * (x @ f["w_up"])
-    return h @ f["w_down"], torch.zeros((), dtype=torch.float32,
-                                        device=x.device)
+    """Dense or MoE FFN on (B,S,d). Returns (out, aux_loss)."""
+    if "ffn" in p:
+        f = p["ffn"]
+        h = silu(x @ f["w_gate"]) * (x @ f["w_up"])
+        return h @ f["w_down"], torch.zeros((), dtype=torch.float32,
+                                            device=x.device)
+    b, s, d = x.shape
+    cfg_moe = cfg.moe
+    if cfg.moe_capacity_factor_override is not None:
+        cfg_moe = dataclasses.replace(
+            cfg_moe, capacity_factor=cfg.moe_capacity_factor_override)
+    y, aux = moe_ffn(x.reshape(b * s, d), p["moe"], cfg_moe,
+                     n_groups=cfg.moe_groups)
+    return y.reshape(b, s, d), aux
 
 
 def _layer_fn(cfg: LMConfig, p, x, cos, sin, positions=None,
@@ -270,15 +362,12 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
     """tokens: (B,S) -> hidden (B,S,d), total aux loss.  ``attention``
     picks the attention of every layer (see ``ATTENTION``); remat applies
     only where autograd records the forward."""
-    _check_dense(cfg)
-    if attention not in ATTENTION:
-        raise ValueError(f"attention must be one of {ATTENTION}, got "
-                         f"{attention!r}")
+    _check_attention(cfg, attention)
     # The embedding gather.  ``F.embedding``'s backward sums repeated
     # tokens in a fixed order; an indexing gather's backward accumulates
     # them in parallel, in an order that changes from run to run.
     x = F.embedding(tokens.long(), params["embed"])
-    cos, sin = rope_frequencies(cfg.head_dim, tokens.shape[1],
+    cos, sin = rope_frequencies(cfg.rope_dim, tokens.shape[1],
                                 cfg.rope_theta, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.first_k_dense):
@@ -358,18 +447,25 @@ def make_train_step(cfg: LMConfig, optimizer, n_microbatches: int = 1,
 # ================================================================= serving
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
                   device: DeviceLike = None) -> Dict[str, Any]:
-    """The reference's cache tree: ``{"scan": {"k", "v"}: (L, B, max_len,
-    HK, Dh)}`` (plus ``"dense"`` for leading dense layers) in the model's
-    dtype, zeroed, and ``"length"``, the number of valid positions, a
-    host int (the reference's int32 scalar)."""
-    _check_dense(cfg)
+    """The reference's cache tree, zeroed, in the model's dtype: ``{"scan":
+    {"k", "v"}: (L, B, max_len, HK, Dh)}``, or for MLA the compressed
+    latent ``{"ckv": (L, B, max_len, kv_lora_rank), "k_rope": (L, B,
+    max_len, qk_rope_dim)}``, plus ``"dense"`` for the leading dense
+    layers, and ``"length"``, the number of valid positions, a host int
+    (the reference's int32 scalar)."""
     dev = resolve_device(device)
-    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.torch_dtype
+    if cfg.mla is not None:
+        widths = {"ckv": (cfg.mla.kv_lora_rank,),
+                  "k_rope": (cfg.mla.qk_rope_dim,)}
+    else:
+        widths = {name: (cfg.n_kv_heads, cfg.head_dim)
+                  for name in ("k", "v")}
 
     def mk(n_layers):
-        return {name: torch.zeros((n_layers, batch, max_len, hk, dh),
-                                  dtype=cfg.torch_dtype, device=dev)
-                for name in ("k", "v")}
+        return {name: torch.zeros((n_layers, batch, max_len) + w, dtype=dt,
+                                  device=dev)
+                for name, w in widths.items()}
 
     cache: Dict[str, Any] = {"scan": mk(cfg.n_layers - cfg.first_k_dense)}
     if cfg.first_k_dense:
@@ -378,7 +474,7 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
     return cache
 
 
-def _decode_attn_gqa(cfg, p, x, cache_k, cache_v, cache_len: int, cos, sin):
+def _decode_attn_gqa(cfg, p, x, cache_len: int, cos, sin, cache_k, cache_v):
     """x: (B,1,d); caches (B,Smax,HK,Dh), written in place at position
     ``cache_len``.  Returns the attention output (B,1,d).  cos/sin are
     single-row tables for the current position (index 0)."""
@@ -396,25 +492,61 @@ def _decode_attn_gqa(cfg, p, x, cache_k, cache_v, cache_len: int, cos, sin):
     return torch.einsum("bshe,hed->bsd", o, p["w_o"])
 
 
+def _decode_attn_mla(cfg, p, x, cache_len: int, cos, sin, cache_ckv,
+                     cache_kr):
+    """MLA absorbed decode: attention in the latent space, no k/v
+    expansion.  x: (B,1,d); caches (B,Smax,r) and (B,Smax,rope), written
+    in place at ``cache_len``.  W_uk is absorbed into q (scores =
+    (q_nope W_uk^T) . ckv + q_rope . k_rope) and W_uv applied after the
+    softmax-weighted latent sum.  Returns (B,1,d)."""
+    m = cfg.mla
+    b = x.shape[0]
+    pos = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])[:, 0]  # (B,H,nope+rope)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope[:, None], cos, sin, pos)[:, 0]
+
+    ckv_new = rms_norm(x @ p["w_dkv"], p["kv_norm"])  # (B,1,r)
+    kr_new = apply_rope((x @ p["w_kr"])[:, :, None, :], cos, sin,
+                        pos)[:, :, 0]  # (B,1,rope)
+    cache_ckv[:, cache_len:cache_len + 1] = ckv_new
+    cache_kr[:, cache_len:cache_len + 1] = kr_new
+
+    q_lat = torch.einsum("bhe,rhe->bhr", q_nope, p["w_uk"])  # (B,H,r)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bhr,bkr->bhk", q_lat, cache_ckv)
+         + torch.einsum("bhe,bke->bhk", q_rope, cache_kr)).float() * scale
+    valid = torch.arange(cache_ckv.shape[1], device=x.device) < cache_len + 1
+    s = torch.where(valid[None, None], s, attn_lib.NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(cache_ckv.dtype)
+    o_lat = torch.einsum("bhk,bkr->bhr", pr, cache_ckv)  # (B,H,r)
+    o = torch.einsum("bhr,rhe->bhe", o_lat, p["w_uv"])  # (B,H,v_dim)
+    return torch.einsum("bhe,hed->bd", o, p["w_o"])[:, None]
+
+
 def make_serve_step(cfg: LMConfig):
     """decode: (params, cache, tokens (B,1)) -> (logits (B,V) float32, the
-    same cache tree with ``length`` advanced).  The new position's keys
-    and values are written into the cache in place."""
-    _check_dense(cfg)
+    same cache tree with ``length`` advanced).  The new position's cache
+    entries (k and v, or MLA's ckv and k_rope) are written in place."""
+    if cfg.mla is not None:
+        decode_attn, names = _decode_attn_mla, ("ckv", "k_rope")
+    else:
+        decode_attn, names = _decode_attn_gqa, ("k", "v")
 
     def serve_step(params, cache, tokens):
         length = int(cache["length"])
-        if length >= cache["scan"]["k"].shape[2]:
+        if length >= cache["scan"][names[0]].shape[2]:
             raise ValueError(f"KV cache full ({length} positions)")
         with torch.inference_mode():
             x = F.embedding(tokens.long(), params["embed"])  # (B,1,d)
-            cos, sin = rope_row(length, cfg.head_dim, cfg.rope_theta,
+            cos, sin = rope_row(length, cfg.rope_dim, cfg.rope_theta,
                                 device=x.device)
 
-            def run_layer(p, x, layer_k, layer_v):
+            def run_layer(p, x, layer_cache):
                 h = _apply_norm(cfg, p["ln1"], x)
-                a = _decode_attn_gqa(cfg, p["attn"], h, layer_k, layer_v,
-                                     length, cos, sin)
+                a = decode_attn(cfg, p["attn"], h, length, cos, sin,
+                                *layer_cache)
                 if cfg.parallel_block:
                     f, _ = _ffn_block(cfg, p, h)
                     return x + a + f
@@ -422,13 +554,15 @@ def make_serve_step(cfg: LMConfig):
                 f, _ = _ffn_block(cfg, p, _apply_norm(cfg, p["ln2"], x))
                 return x + f
 
+            def layer_caches(group, i):
+                return [cache[group][name][i] for name in names]
+
             for i in range(cfg.first_k_dense):
                 x = run_layer(params[f"dense_layer_{i}"], x,
-                              cache["dense"]["k"][i], cache["dense"]["v"][i])
+                              layer_caches("dense", i))
             if "layers" in params:
                 for i, layer_p in enumerate(_unstack(params["layers"])):
-                    x = run_layer(layer_p, x, cache["scan"]["k"][i],
-                                  cache["scan"]["v"][i])
+                    x = run_layer(layer_p, x, layer_caches("scan", i))
             h = _apply_norm(cfg, params["final_norm"], x)
             logits = (h[:, 0] @ _unembed(cfg, params)).float()
         cache["length"] = length + 1
@@ -437,16 +571,18 @@ def make_serve_step(cfg: LMConfig):
     return serve_step
 
 
-def make_prefill(cfg: LMConfig, attention: str = "flash"):
+def make_prefill(cfg: LMConfig, attention: Optional[str] = None):
     """prefill: (params, tokens (B,S)) -> last-token logits (B,V) float32,
-    the inference forward (no loss; the ``prefill_32k`` shape).  Its
-    attention runs through the flash attention kernel K7 by default;
-    ``attention="plain"`` takes the training path's attention (chunked or
-    full, as the config says) for comparison."""
-    _check_dense(cfg)
-    if attention not in ATTENTION:
-        raise ValueError(f"attention must be one of {ATTENTION}, got "
-                         f"{attention!r}")
+    the inference forward (no loss; the ``prefill_32k`` shape).  By
+    default its attention is the flash attention kernel K7 where the
+    config's attention is GQA, and the plain attention (chunked or full,
+    as the config says) for MLA, whose q/k and v head dims differ while
+    K7 takes one, as the reference runs jnp attention there.
+    ``attention="plain"`` takes the training path's attention for
+    comparison; ``"flash"`` on an MLA config raises ValueError."""
+    if attention is None:
+        attention = "plain" if cfg.mla is not None else "flash"
+    _check_attention(cfg, attention)
 
     def prefill(params, tokens):
         with torch.inference_mode():

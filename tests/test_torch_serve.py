@@ -225,8 +225,10 @@ def test_sampled_decode_is_reproducible_from_its_generator():
 
 
 def test_launch_serve_refuses_other_families_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="not an LM"):
         serve.main(["--arch", "dlrm-rm2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 15, part 4"):
+        serve.main(["--arch", "gin-tu", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", "qwen1.5-0.5b", "--smoke"])
