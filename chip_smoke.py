@@ -191,7 +191,33 @@ freed before the next):
      with MLA's absorbed decode (batch 16, a 128-token prompt, 32
      tokens), a 4 096-token prefill through the plain chunked attention
      (MLA has no K7 route), and the absorbed decode against the
-     un-absorbed prefill in float32 with no drops, as in phase m.
+     un-absorbed prefill in float32 with no drops, as in phase m;
+
+and the GNN family at gin-tu's four graph shapes (synthetic graphs from
+``random_graph`` and ``molecule_batch``, seed 0, at the datasets'
+published sizes; seeded random weights), then the port's examples:
+
+  u. full_graph_sm (Cora's 2,708 nodes, 10,556 edges, 1,433 features)
+     through ``launch/train.main --arch gin-tu``, 30 steps of adam(1e-3);
+     ogb_products (2,449,029 nodes, 61,859,140 power-law edges, 100
+     features) full-graph steps of ``make_train_step`` with ``adam(1e-3,
+     fused=True)``, K5 a leaf a step: two identical forward+backward
+     passes bit for bit (the segment sum is deterministic), the first
+     step held bit for bit against K5's plain version, 5 timed steps,
+     the aggregation timed apart (also with no chunks: the hot
+     segment), within 40 GB at peak; minibatch_lg (Reddit's 232,965
+     nodes, 114,615,892 edges, 602 features) through
+     ``NeighborSampler(fanouts=(15, 10))`` at batch 1,024, a fresh block
+     a step, host seconds of the graph, the CSR, each block, the batch
+     and its copy printed; molecule, 128 graphs of 30 nodes and 64 edges,
+     the graph task; every loss finite and falling;
+  v. ``examples/torch_multi_job_service.py`` at its defaults (K1 every
+     tick, K2 on the replans; losses falling across the arrival and the
+     exit, the exit migrating bytes), ``examples/torch_train_lm_e2e.py``
+     (the ~100 M LM, ``--fused-adam``) for 101 steps and then to 160 on
+     one fresh checkpoint directory under ``build/``, the second call
+     resuming from step 100, and ``examples/torch_serve_decode.py``
+     (granite-8b's smoke config through two read-tier replicas).
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -229,9 +255,12 @@ limit, and as the last line
 Run from the repository root: ``python3 chip_smoke.py``.  Without CUDA,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  ``--scale 0.001`` rehearses the phases on the card on smaller
-tensors (phases e-h, i-k and m-p on the smoke configs), prints no
+tensors (phases e-h, i-k and m-p on the smoke configs, u's node-task
+graphs cut by ``GNN_CUT``, v's examples at small settings), prints no
 result and exits 2.  ``scripts/torch_lm_rehearsal.py`` rehearses phases
-m, n and p on the CPU through ``lm_family_phases``, as ``main`` runs them.
+m, n and p on the CPU through ``lm_family_phases``, as ``main`` runs them;
+``scripts/torch_gnn_rehearsal.py`` phases u and v through ``gnn_phase``
+and ``examples_phase``.
 """
 
 from __future__ import annotations
@@ -3296,8 +3325,9 @@ class FirstStepTwin:
     same step through K5's plain version (``aggregate_adam_plain``) on
     clones of its inputs; every step is the wrapped optimizer's."""
 
-    def __init__(self, opt, lr, **kw):
+    def __init__(self, opt, lr, what="phase m", **kw):
         self.opt, self.lr, self.kw, self.checked = opt, lr, kw, None
+        self.what = what
         self.init = opt.init
 
     def step(self, params, grads, state):
@@ -3321,8 +3351,8 @@ class FirstStepTwin:
             for name, want, have in zip(("p", "mu", "nu"), (p, mu, nu), got):
                 if not bits_equal(have[k], want):
                     raise AssertionError(
-                        f"phase m: the first step's {k} {name} differs from "
-                        f"K5's plain version (max abs "
+                        f"{self.what}: the first step's {k} {name} differs "
+                        f"from K5's plain version (max abs "
                         f"{max_abs(have[k].float(), want.float())})")
         self.checked = len(twin)
         del twin
@@ -3525,6 +3555,433 @@ def lm_family_phases(device, wrappers, full, entries):
     free_device()
     counts_p = mla_phase(device, wrappers, full)
     return counts_m, counts_n, counts_p
+
+
+# ------------------------------------------------------ the GNN (phase u)
+GNN_LR = 1e-3  # launch/train's adam(1e-3) for gin-tu
+GNN_STEPS = 6  # ogb_products: the twin's step, then 5 timed ones
+MINIBATCH_STEPS = 8
+MOLECULE_STEPS = 20
+GNN_PEAK_GB = 40.0  # ogb_products: 24.7 GB of layer-1 messages plus state
+GNN_CUT = 1000  # nodes and edges of a node-task graph divided by this
+#                 in a rehearsal (widths and fanouts stay)
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured, then printed;
+    returns (its result, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return out, text
+
+
+def logged_losses(text, prefix="[train] step="):
+    return [float(line.split("loss=")[1].split()[0])
+            for line in text.splitlines() if line.startswith(prefix)]
+
+
+def gnn_graph(shape, full):
+    """A ``GRAPH_SHAPES`` node-task graph from ``random_graph`` (seed 0;
+    cut by GNN_CUT unless ``full``), and the host seconds it took."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.data import random_graph
+
+    sh = gin_tu.GRAPH_SHAPES[shape]
+    cut = 1 if full else GNN_CUT
+    t0 = time.perf_counter()
+    g = random_graph(np.random.default_rng(0), sh["n_nodes"] // cut,
+                     sh["n_edges"] // cut, sh["d_feat"], sh["n_classes"])
+    return g, time.perf_counter() - t0
+
+
+def gnn_state(cfg, device, what):
+    """Seeded GIN weights and ``adam(1e-3, fused=True)`` (K5 a leaf a
+    step), its first step held against K5's plain version."""
+    from repro_torch.models import gnn
+    from repro_torch.optim import adam
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = gnn.init_params(cfg, gen, device)
+    opt = FirstStepTwin(adam(GNN_LR, fused=True), GNN_LR, what, b1=0.9,
+                        b2=0.999, eps=1e-8, wd=0.0)
+    return {"params": params, "opt": opt.init(params)}, opt
+
+
+def gnn_full_graph_phase(device, wrappers, full):
+    """Phase u1: full_graph_sm (Cora's sizes) through
+    ``launch/train.main --arch gin-tu``: 30 steps, losses finite and
+    falling."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    argv = ["--arch", "gin-tu", "--steps", "30", "--log-every", "5"]
+    argv += (["--device", "cpu"] if device.type == "cpu" else [])
+    argv += [] if full else ["--smoke"]
+    reset_counters(wrappers)
+    _, text = captured(train.main, argv)
+    counts = read_counters(wrappers)
+    losses = logged_losses(text)
+    check_losses("u full_graph_sm", losses)
+    print(f"phase u full_graph_sm (launch/train.main {' '.join(argv)}): "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f} counters={counts} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return counts
+
+
+def agg_times(batch, device):
+    """The aggregation's device ms at the step's widths: forward at
+    d_feat (layer 1) and at d_hidden, backward at d_hidden; at d_hidden
+    also the same sums as ``index_select`` of the E message rows (timed
+    alone too) and ``torch.segment_reduce`` over the same bags (held bit
+    for bit against the aggregation), the forward with no chunks (the
+    hot segment in one thread a column), and ``torch.sparse.mm`` of the
+    CSR adjacency (cuSPARSE; a library call the port does not use, its
+    summation order its own)."""
+    from repro_torch.models import gnn
+
+    agg, feats = batch["agg"], batch["feats"]
+    n, fwd = feats.shape[0], agg.by_dst
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    h = torch.randn(n, 64, generator=gen, device=device)
+    want = agg(h)
+
+    def ms(fn):
+        return time_ms(fn, device, reps=3, warmup=1, inner=1)
+
+    def gathered():
+        out = torch.segment_reduce(h.index_select(0, fwd.rows), "sum",
+                                   offsets=fwd.offsets, axis=0, unsafe=True)
+        if fwd.chunk_offsets is None:
+            return out
+        return torch.segment_reduce(out, "sum", offsets=fwd.chunk_offsets,
+                                    axis=0, unsafe=True)
+
+    if not bits_equal(gathered(), want):
+        raise AssertionError("phase u: index_select + segment_reduce differ "
+                             "from the aggregation's sums")
+    t = {"fwd_d_feat": ms(lambda: agg(feats)), "fwd_d64": ms(lambda: agg(h)),
+         "bwd_d64": ms(lambda: agg.by_src(h)),
+         "index_select_d64": ms(lambda: h.index_select(0, fwd.rows)),
+         "index_select_segment_reduce_d64": ms(gathered)}
+    one = gnn.Aggregation(batch["edge_src"], batch["edge_dst"], n,
+                          chunk=batch["edge_src"].numel())
+    t["fwd_d64_unchunked"] = ms(lambda: one.by_dst(h))
+    del one
+    counts = torch.bincount(batch["edge_dst"].long(), minlength=n)
+    adj = torch.sparse_csr_tensor(
+        torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]), fwd.rows,
+        torch.ones(fwd.rows.numel(), device=device), size=(n, n))
+    err = float((torch.sparse.mm(adj, h) - want).abs().max()
+                / want.abs().max())
+    if not err < 1e-5:
+        raise AssertionError(f"phase u: torch.sparse.mm differs from the "
+                             f"aggregation by {err:.3e} of its largest sum")
+    t["library_spmm_d64"] = ms(lambda: torch.sparse.mm(adj, h))
+    del adj, h, want
+    return t
+
+
+def gnn_products_phase(device, wrappers, graph):
+    """Phase u2: ogb_products (2,449,029 nodes, 61,859,140 power-law
+    edges, 100 features; ``graph`` is ``gnn_graph``'s) full-graph steps
+    through ``make_train_step`` with ``adam(1e-3, fused=True)``: two
+    identical forward+backward passes bit for bit, the first step
+    against K5's plain version bit for bit, then 5 timed steps; the
+    aggregation timed apart; within GNN_PEAK_GB at peak."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_leaves_by_key, value_and_grad
+
+    t_start = time.perf_counter()
+    g, gen_s = graph
+    cfg = gin_tu.model_for_shape("ogb_products")
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(device) for k, v in g.items()}
+    sync(device)
+    h2d_s = time.perf_counter() - t0
+    n, e = g["feats"].shape[0], g["edge_src"].shape[0]
+    hot = int(np.bincount(g["edge_dst"], minlength=n).max())
+    del g
+    t0 = time.perf_counter()
+    batch = gnn.with_aggregation(cfg, batch)
+    sync(device)
+    plan_s = time.perf_counter() - t0
+    state, opt = gnn_state(cfg, device, "phase u ogb_products")
+    grad = value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b))
+    (l1, g1), (l2, g2) = (grad(state["params"], batch) for _ in range(2))
+    a, b = tree_leaves_by_key(g1), tree_leaves_by_key(g2)
+    differ = [k for k in a if not bits_equal(a[k], b[k])]
+    if differ or not bits_equal(l1, l2):
+        raise AssertionError(f"phase u ogb_products: two identical passes "
+                             f"differ: loss {float(l1)} vs {float(l2)}, "
+                             f"leaves {differ}")
+    del g1, g2, a, b
+    step = gnn.make_train_step(cfg, opt)
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(step, state, [batch] * GNN_STEPS,
+                                       device)
+    counts = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(tree_leaves_by_key(state["params"]))
+    if opt.checked != n_leaves:
+        raise AssertionError("phase u ogb_products: the first step was not "
+                             "checked")
+    if counts["agg_adam_dense"] != GNN_STEPS * n_leaves:
+        raise AssertionError(f"phase u ogb_products: "
+                             f"{counts['agg_adam_dense']} K5 launches for "
+                             f"{GNN_STEPS} steps of {n_leaves} leaves")
+    check_losses("u ogb_products", losses)
+    if device.type == "cuda" and peak > GNN_PEAK_GB:
+        raise AssertionError(f"phase u ogb_products: {peak:.2f} GB at peak "
+                             f"(budget {GNN_PEAK_GB})")
+    t = agg_times(batch, device)
+    med = statistics.median(times[1:])
+    per_step = t["fwd_d_feat"] + (cfg.n_layers - 1) * (t["fwd_d64"]
+                                                        + t["bwd_d64"])
+    print(f"phase u ogb_products ({cfg.name} x{cfg.n_layers} d_hidden="
+          f"{cfg.d_hidden}, nodes={n} edges={e} d_feat={cfg.d_feat} "
+          f"hot_segment={hot}): host graph_s={gen_s:.2f} h2d_s={h2d_s:.2f} "
+          f"plan_s={plan_s:.2f}; steps={len(times)} step_ms_median="
+          f"{med:.2f} (steps 2-{len(times)}) step_ms_first={times[0]:.2f} "
+          f"edges_per_s={e / med * 1e3:.0f} losses="
+          f"{[round(l, 4) for l in losses]} counters={counts} "
+          f"k5_per_step={counts['agg_adam_dense'] // GNN_STEPS} "
+          f"max_memory_allocated_gb={peak:.2f}; aggregation ms: "
+          + " ".join(f"{k}={v:.3f}" for k, v in t.items())
+          + f" per_step~{per_step:.2f} share~{per_step / med:.3f}; two "
+          f"passes bit for bit, first step = K5's plain twin bit for bit; "
+          f"seconds={time.perf_counter() - t_start:.1f}", flush=True)
+    del batch, state
+    free_device()
+    return counts
+
+
+def reddit_sampler(full):
+    """minibatch_lg's graph (``gnn_graph``) and its
+    ``NeighborSampler(fanouts=(15, 10))`` (the CSR build), on the host;
+    returns (graph without its edge lists, sampler, graph s, CSR s)."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.data import NeighborSampler
+
+    g, gen_s = gnn_graph("minibatch_lg", full)
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g.pop("edge_src"), g.pop("edge_dst"),
+                              g["feats"].shape[0],
+                              gin_tu.GRAPH_SHAPES["minibatch_lg"]["fanouts"],
+                              seed=0)
+    return g, sampler, gen_s, time.perf_counter() - t0
+
+
+def gnn_minibatch_phase(device, wrappers, built):
+    """Phase u3: minibatch_lg (Reddit's 232,965 nodes and 114,615,892
+    edges, 602 features) through ``NeighborSampler(fanouts=(15, 10))``
+    at batch 1,024 (``built`` is ``reddit_sampler``'s): a fresh block a
+    step, its batch copied to the card, its plans built there."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.models import gnn
+
+    t_start = time.perf_counter()
+    sh = gin_tu.GRAPH_SHAPES["minibatch_lg"]
+    cfg = gin_tu.model_for_shape("minibatch_lg")
+    g, sampler, gen_s, csr_s = built
+    n = g["feats"].shape[0]
+    state, opt = gnn_state(cfg, device, "phase u minibatch_lg")
+    step = gnn.make_train_step(cfg, opt)
+    seeds = np.random.default_rng(1).permutation(n)
+    bs = min(sh["batch_nodes"], n // MINIBATCH_STEPS)
+    reset_counters(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    sample_s, batch_s, h2d_s, times, losses, sizes = [], [], [], [], [], []
+    for i in range(MINIBATCH_STEPS):
+        t0 = time.perf_counter()
+        block = sampler.sample(seeds[i * bs:(i + 1) * bs])
+        t1 = time.perf_counter()
+        host = sampler.make_batch(block, g["feats"], g["labels"])
+        t2 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        sync(device)
+        t3 = time.perf_counter()
+        batch = gnn.with_aggregation(cfg, batch)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        sync(device)
+        times.append((time.perf_counter() - t3) * 1e3)
+        sample_s.append(t1 - t0)
+        batch_s.append(t2 - t1)
+        h2d_s.append(t3 - t2)
+        sizes.append((block.n_active, int(host["edge_mask"].sum())))
+    counts = read_counters(wrappers)
+    check_losses("u minibatch_lg", losses)
+    print(f"phase u minibatch_lg (fanouts={sh['fanouts']} batch={bs}, nodes="
+          f"{n} edges={sampler.indices.shape[0]} d_feat="
+          f"{cfg.d_feat}, padded block {sampler.max_sizes(bs)}): host "
+          f"graph_s={gen_s:.2f} csr_s={csr_s:.2f} sample_s_per_block="
+          f"{statistics.median(sample_s):.3f} make_batch_s="
+          f"{statistics.median(batch_s):.3f} h2d_s="
+          f"{statistics.median(h2d_s):.3f}; steps={len(times)} "
+          f"step_ms_median={statistics.median(times):.2f} (plans and step) "
+          f"step_ms_first={times[0]:.2f} active (nodes, edges) first="
+          f"{sizes[0]} losses={[round(l, 4) for l in losses]} counters="
+          f"{counts} max_memory_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    del sampler, g, state
+    free_device()
+    return counts
+
+
+def gnn_molecule_phase(device, wrappers):
+    """Phase u4: molecule, the graph task: 128 MUTAG-like graphs of 30
+    nodes and 64 edges (``molecule_batch``), MOLECULE_STEPS steps on the
+    batch with the sum readout."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.data import molecule_batch
+    from repro_torch.models import gnn
+
+    t_start = time.perf_counter()
+    sh = gin_tu.GRAPH_SHAPES["molecule"]
+    cfg = gin_tu.model_for_shape("molecule")
+    host = molecule_batch(np.random.default_rng(0), sh["batch"],
+                          sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+                          sh["n_classes"])
+    batch = gnn.with_aggregation(cfg, {k: torch.from_numpy(v).to(device)
+                                       for k, v in host.items()})
+    state, opt = gnn_state(cfg, device, "phase u molecule")
+    reset_counters(wrappers)
+    state, times, losses = timed_steps(gnn.make_train_step(cfg, opt), state,
+                                       [batch] * MOLECULE_STEPS, device)
+    counts = read_counters(wrappers)
+    check_losses("u molecule", losses)
+    print(f"phase u molecule (graphs={sh['batch']} x {sh['n_nodes']} nodes "
+          f"x {sh['n_edges']} edges, d_feat={cfg.d_feat}, classes="
+          f"{cfg.n_classes}): steps={len(times)} step_ms_median="
+          f"{statistics.median(times):.2f} losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} counters={counts} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
+
+
+def gnn_phase(device, wrappers, full):
+    """Phase u: gin-tu at all four ``GRAPH_SHAPES`` (published node, edge
+    and feature counts unless rehearsing).  The two large graphs are
+    built on the host in two threads (numpy releases the GIL in its
+    long calls) while the small shapes train.  Returns the launch
+    counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_start = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        products = pool.submit(gnn_graph, "ogb_products", full)
+        reddit = pool.submit(reddit_sampler, full)
+        counts = merge_counts(
+            gnn_full_graph_phase(device, wrappers, full),
+            gnn_molecule_phase(device, wrappers),
+            gnn_products_phase(device, wrappers, products.result()),
+            gnn_minibatch_phase(device, wrappers, reddit.result()))
+    _require(counts, ("agg_adam_dense",), "u")
+    print(f"phase u (gin-tu, four graph shapes): counters={counts} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
+
+
+# ------------------------------------------------- the examples (phase v)
+E2E_STEPS = (101, 160)  # save_every 100: resume from step 100
+
+
+def example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(device, wrappers, full):
+    """Phase v: the port's examples on the card.  The multi-job service at
+    its defaults (K1 every tick, K2 on the replans); the ~100 M LM with
+    ``--fused-adam`` (K5) in two calls on one fresh checkpoint directory
+    under ``build/``, the second resuming from step 100; the decode
+    example through two read-tier replicas.  Returns the launch counts."""
+    t_start = time.perf_counter()
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    out, _ = captured(example("torch_multi_job_service").main,
+                      dev + ([] if full else ["--steps", "30"]))
+    for job in ("mlp", "lm"):
+        ls = [l for _, l in out["losses"][job]]
+        third = len(ls) // 3
+        if not (all(np.isfinite(ls))
+                and np.mean(ls[-third:]) < np.mean(ls[:third])):
+            raise AssertionError(f"phase v multi-job service: {job} losses "
+                                 f"not finite and falling: {ls}")
+    if not out["migrated"]["exit"] > 0:
+        raise AssertionError("phase v multi-job service: the exit migrated "
+                             "nothing")
+    mj_s = time.perf_counter() - t0
+    counts = [read_counters(wrappers)]
+
+    ckpt = ROOT / "build" / "phase_v_lm_e2e"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    free_gb = shutil.disk_usage(ckpt.parent).free / 1e9
+    if free_gb < 8:
+        raise AssertionError(f"phase v: {free_gb:.1f} GB free under build/,"
+                             f" the LM's checkpoints need ~3")
+    argv = dev + ["--fused-adam", "--ckpt-dir", str(ckpt)]
+    steps = E2E_STEPS if full else (26, 40)
+    argv += [] if full else ["--smoke", "--save-every", "25", "--batch", "2",
+                             "--seq", "16"]
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    try:
+        main = example("torch_train_lm_e2e").main
+        first, _ = captured(main, argv + ["--steps", str(steps[0])])
+        second, _ = captured(main, argv + ["--steps", str(steps[1])])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    e2e_s = time.perf_counter() - t0
+    saved = steps[0] - 1
+    if (first["resumed_from"] is not None or second["resumed_from"] != saved
+            or second["steps"] != steps[1] - steps[0]):
+        raise AssertionError(f"phase v LM: expected a fresh run, then a "
+                             f"resume from step {saved}: {first}, {second}")
+    if not (np.isfinite(second["last_loss"])
+            and first["last_loss"] < first["first_loss"]
+            and second["last_loss"] < first["first_loss"]):
+        raise AssertionError(f"phase v LM: losses not finite and falling: "
+                             f"{first}, {second}")
+    counts.append(read_counters(wrappers))
+
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    out, _ = captured(example("torch_serve_decode").main, dev)
+    if tuple(out["tokens"].shape) != (4, 24):
+        raise AssertionError(f"phase v decode: tokens "
+                             f"{tuple(out['tokens'].shape)}")
+    serve_s = time.perf_counter() - t0
+    counts.append(read_counters(wrappers))
+    counts = merge_counts(*counts)
+    print(f"phase v (examples): multi_job_service {mj_s:.1f} s; "
+          f"train_lm_e2e steps {steps[0]} then {steps[1]} (resumed from "
+          f"step {second['resumed_from']}, loss {first['first_loss']:.3f} "
+          f"-> {second['last_loss']:.3f}) {e2e_s:.1f} s; serve_decode "
+          f"{serve_s:.1f} s; counters={counts} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    return counts
 
 
 # ----------------------------------------------------------------- main
@@ -3781,6 +4238,13 @@ def main() -> int:
     for counts in (counts_m, counts_n, counts_p):
         add_totals(counts)
 
+    # ---- phase u: the GNN at its four graph shapes; phase v: the examples
+    counts_u = gnn_phase(device, wrappers, full)
+    add_totals(counts_u)
+    counts_v = examples_phase(device, wrappers, full)
+    _require(counts_v, ("agg_adam_multijob_fused", "agg_adam_dense"), "v")
+    add_totals(counts_v)
+
     # ---- report
     k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
     rl_src = "src/repro_torch/kernels/relayout/csrc/relayout.cu"
@@ -3801,9 +4265,10 @@ def main() -> int:
         "agg_adam_dense:embed": (  # bf16 leaves: phases e and m
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
             counts_e["agg_adam_dense"] + counts_m["agg_adam_dense"]),
-        "agg_adam_dense:ps_flat": (
+        "agg_adam_dense:ps_flat": (  # float32 leaves: phases f, u and v
             k1_src, "src/repro/kernels/agg_adam/kernel.py:76",
-            counts_f["agg_adam_dense"]),
+            counts_f["agg_adam_dense"] + counts_u["agg_adam_dense"]
+            + counts_v["agg_adam_dense"]),
         "agg_adam_multijob": (
             k1_src, "src/repro/kernels/agg_adam/kernel.py:276",
             totals["agg_adam_multijob"]),

@@ -1,10 +1,11 @@
 """Architecture registry (``repro.configs.registry``): --arch <id> ->
 config constructors.
 
-Every arch id of the reference is listed.  Each ported arch module exposes
-``config()`` (the published dims) and ``smoke_config()`` (a reduced config
-of the same family for CPU tests); the others raise NotImplementedError
-naming the ROADMAP item that ports them.  Modules are imported lazily.
+Every arch id of the reference is listed and ported.  Each arch module
+exposes ``config()`` (the published dims) and ``smoke_config()`` (a
+reduced config of the same family for CPU tests); ``gin_tu`` also its
+four ``GRAPH_SHAPES`` and ``model_for_shape``.  Modules are imported
+lazily.
 """
 
 from __future__ import annotations
@@ -31,18 +32,12 @@ FAMILIES: Dict[str, str] = {
     "dlrm-rm2": "recsys", "sasrec": "recsys", "dien": "recsys",
     "dlrm-mlperf": "recsys",
 }
-PORTED = frozenset({"command-r-plus-104b", "qwen1.5-0.5b", "granite-8b",
-                    "granite-moe-1b-a400m", "deepseek-v2-236b", "dlrm-rm2",
-                    "sasrec", "dien", "dlrm-mlperf"})
+PORTED = frozenset(ARCHS)  # every arch of the reference
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} ({FAMILIES[arch]}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 15, part 4)")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

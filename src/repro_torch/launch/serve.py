@@ -168,12 +168,7 @@ def main(argv=None, params=None) -> Dict[str, object]:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    family = registry.family(args.arch)
-    if family == "gnn":
-        raise NotImplementedError(
-            f"arch {args.arch!r} (gnn) is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 15, part 4)")
-    if family != "lm":
+    if registry.family(args.arch) != "lm":
         raise ValueError(f"{args.arch} is not an LM; serve decodes LM archs")
     device = resolve_device(args.device)
     cfg = (registry.get_smoke_config(args.arch) if args.smoke

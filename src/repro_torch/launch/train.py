@@ -2,8 +2,8 @@
 training on the card.
 
 Synthetic batches -> the family's train step with the reference's
-optimizer (lm: ``adam(3e-4)``; dlrm: ``adagrad(0.01)``; sasrec and dien:
-``adam(1e-3)``) -> CheckpointManager (background saves every
+optimizer (lm: ``adam(3e-4)``; dlrm: ``adagrad(0.01)``; sasrec, dien and
+gin: ``adam(1e-3)``) -> CheckpointManager (background saves every
 ``--ckpt-every`` steps; a relaunch resumes from the latest step) -> loss
 and throughput lines.  Weights come from a ``torch.Generator`` on the
 device seeded with 0.  Runs on ``cuda:0`` unless ``--device cpu``.
@@ -13,10 +13,13 @@ device seeded with 0.  Runs on ``cuda:0`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
       --steps 10 --batch 65536
 
-Every lm arch (dense, MoE and MLA) and the recsys family run; the gnn
-arch is not ported yet (ROADMAP.md, Queue 1 item 15, part 4).  No full
-LM but Qwen1.5-0.5B and granite-moe-1b-a400m has a training state that
-fits one 80 GB card.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu
+
+Every arch runs: the lm family (dense, MoE and MLA), the recsys family
+and the GNN (gin-tu: full-graph steps on a synthetic Cora-sized graph,
+2,708 nodes and 10,556 power-law edges, built once on the device; items
+are edges).  No full LM but Qwen1.5-0.5B and granite-moe-1b-a400m has a
+training state that fits one 80 GB card.
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..configs import registry
-from ..data import dien_batch, lm_batch, recsys_batch, sasrec_batch
+from ..data import (dien_batch, lm_batch, random_graph, recsys_batch,
+                    sasrec_batch)
 from ..device import resolve_device
-from ..models import recsys
+from ..models import gnn, recsys
 from ..models import transformer as tf
 from ..optim import adagrad, adam
 
@@ -60,15 +64,24 @@ def _recsys(cfg, rng, batch: int):
 
 def build(arch: str, smoke: bool, batch: int, seq: int, device=None):
     """Returns (init_state, train_step, batch_fn, items_per_batch): tokens
-    for an LM, examples for a recsys model."""
+    for an LM, examples for a recsys model, edges for the GNN."""
     fam = registry.family(arch)
-    if fam not in ("lm", "recsys"):
-        raise NotImplementedError(
-            f"arch {arch!r} ({fam}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 15, part 4)")
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     cfg = registry.get_smoke_config(arch) if smoke else registry.get_config(arch)
+    if fam == "gnn":
+        opt = adam(1e-3)
+        g = random_graph(rng, 512 if smoke else 2708, 4096 if smoke else 10556,
+                         cfg.d_feat, cfg.n_classes)
+        gb = gnn.with_aggregation(cfg, {k: torch.from_numpy(v).to(device)
+                                        for k, v in g.items()})
+
+        def init_state():
+            params = gnn.init_params(cfg, _seeded(device), device)
+            return {"params": params, "opt": opt.init(params)}
+
+        return (init_state, gnn.make_train_step(cfg, opt), lambda: gb,
+                g["edge_src"].shape[0])
     if fam == "recsys":
         opt, loss, init, host_batch = _recsys(cfg, rng, batch)
 

@@ -361,7 +361,9 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B,S) -> hidden (B,S,d), total aux loss.  ``attention``
     picks the attention of every layer (see ``ATTENTION``); remat applies
-    only where autograd records the forward."""
+    only where autograd records the forward, and not under a
+    ``torch.func`` transform (the service engines' ``grad_and_value``),
+    which ``torch.utils.checkpoint`` does not support."""
     _check_attention(cfg, attention)
     # The embedding gather.  ``F.embedding``'s backward sums repeated
     # tokens in a fixed order; an indexing gather's backward accumulates
@@ -375,7 +377,8 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
                            attention=attention)
         aux_total = aux_total + aux
     if "layers" in params:
-        remat = cfg.remat and torch.is_grad_enabled()
+        remat = (cfg.remat and torch.is_grad_enabled()
+                 and not torch._C._are_functorch_transforms_active())
         for layer_p in _unstack(params["layers"]):
             if remat:
                 x, aux = checkpoint(_layer_fn, cfg, layer_p, x, cos, sin,

@@ -1,6 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports with ``jax``
-blocked, and neither the package nor ``chip_smoke.py`` imports anything
-of the JAX package ``repro``."""
+blocked, and neither the package, ``chip_smoke.py`` nor the port's
+examples (``examples/torch_*.py``) import anything of the JAX package
+``repro``."""
 
 import os
 import pathlib
@@ -27,7 +28,9 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.sim", "repro_torch.sim.trace",
               "repro_torch.sim.simulator", "repro_torch.sim.replay",
               "repro_torch.core.cyclic", "repro_torch.core.ip_model",
-              "repro_torch.core.profiler"):
+              "repro_torch.core.profiler", "repro_torch.models.gnn",
+              "repro_torch.data.graph_sampler", "repro_torch.optim.sgd",
+              "repro_torch.configs.gin_tu"):
         assert m in mods
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -41,7 +44,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_the_reference_package():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert (ROOT / "chip_smoke.py").exists()
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if IMPORT_REPRO.search(f.read_text())

@@ -395,8 +395,10 @@ def test_launch_train_recsys_branch_and_unported_families():
                                                         "cpu")
         state, m = step(init_state(), batch_fn())
         assert items == 4 and np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.build("gin-tu", True, 4, 0, "cpu")
+    init_state, step, batch_fn, items = train.build("gin-tu", True, 4, 0,
+                                                    "cpu")
+    state, m = step(init_state(), batch_fn())
+    assert items == 4096 and np.isfinite(float(m["loss"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.build("dlrm-rm2", True, 4, 0)

@@ -261,15 +261,10 @@ def test_registry_and_unported_paths_raise():
     assert registry.list_archs() == sorted(registry.ARCHS)
     assert registry.get_config("qwen1.5-0.5b") == tqwen.config()
     for arch in registry.list_archs():
-        if arch in registry.PORTED:
-            registry.get_config(arch)
-        else:
-            with pytest.raises(NotImplementedError, match="item 15"):
-                registry.get_config(arch)
-    # every arch but the GNN (item 15, part 4) is ported
-    assert set(registry.list_archs()) - registry.PORTED == {"gin-tu"}
-    with pytest.raises(NotImplementedError, match="item 15, part 4"):
-        registry.get_smoke_config("gin-tu")
+        registry.get_config(arch)
+    # every arch is ported, the GNN included
+    assert registry.PORTED == set(registry.list_archs())
+    assert registry.get_smoke_config("gin-tu").name == "gin-tu"
     # Compressed pushes (item 4) are ported: the step builds.
     assert callable(truntime.make_ps_train_step(lambda p, b: 0, None, {},
                                                 push_compression="int8"))
