@@ -93,7 +93,8 @@ the paper workloads' full tensor inventories:
      one lease expiration, every lane a view of the fleet arena after
      every window; then the no-fault replay against a flat
      ServiceRuntime twin (K1 ticks and sharded K2 against K3 block steps
-     and flat K2), every live job bit for bit at every window.
+     and flat K2) over the trace's first 6 windows (T_PARITY_WINDOWS),
+     every live job bit for bit at every window.
      Per-window lines give
      the live jobs, shards, the scaler's action, launches, tick and
      replan seconds; the phase must stay within 50 GB at peak and leave
@@ -217,7 +218,33 @@ published sizes; seeded random weights), then the port's examples:
      (the ~100 M LM, ``--fused-adam``) for 101 steps and then to 160 on
      one fresh checkpoint directory under ``build/``, the second call
      resuming from step 100, and ``examples/torch_serve_decode.py``
-     (granite-8b's smoke config through two read-tier replicas).
+     (granite-8b's smoke config through two read-tier replicas);
+
+and last the mesh layer (``repro_torch.launch``'s meshes, cells and
+dry-run; ``ps.sharding`` and ``ps.act_sharding``) on a one-rank host
+mesh, an NCCL group on the card:
+
+  w. w1, DLRM-RM2's 26 tables (13.84 GB, seeded anew) at batch 65,536
+     through the row-sharded lookup's mesh branch (K6 over the rank's
+     row shards, the reduce-scatter, the constraint to the data axes),
+     held bit for bit against the one-device lookup, both timed; w2,
+     granite-moe-1b-a400m's MoE layer at its published widths (d_model
+     1,024, 32 experts top-8, d_ff 512) in float32 on 8 x 512 tokens
+     through ``moe_ffn_sharded``, held against the same function on a
+     one-rank gloo mesh on the CPU in a child process on the same
+     weights: the dropped (token, choice) sets equal, no routing flip,
+     the output within W_MOE_RMS relative RMS; w3, qwen1.5-0.5b's
+     train_4k cell from ``build_cell`` with its batch cut from 256 to 8:
+     one step with DTensor params (``LoweredCell.lower`` under
+     ``op_cost.OpCost``) against the same step on plain tensors, the
+     loss and every updated leaf bit for bit, op_cost's flops printed
+     beside the model flops; w4, ``python -m repro_torch.launch.dryrun``
+     on the 16 x 16 production mesh (a fake process group, meta
+     tensors) for qwen1.5-0.5b train_4k, dlrm-rm2 train_batch and gin-tu
+     ogb_products, three child processes started before w1 and run
+     beside it: each cell's outcome (ok, or the operator that failed),
+     dominant roofline term and fraction, analytic under the H100 SXM's
+     published rates, and wall seconds.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -260,7 +287,8 @@ graphs cut by ``GNN_CUT``, v's examples at small settings), prints no
 result and exits 2.  ``scripts/torch_lm_rehearsal.py`` rehearses phases
 m, n and p on the CPU through ``lm_family_phases``, as ``main`` runs them;
 ``scripts/torch_gnn_rehearsal.py`` phases u and v through ``gnn_phase``
-and ``examples_phase``.
+and ``examples_phase``; ``scripts/torch_mesh_rehearsal.py`` phase w
+(but w4) through ``mesh_phase``.
 """
 
 from __future__ import annotations
@@ -269,6 +297,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import re
 import resource
 import shutil
@@ -1811,6 +1840,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
 
 # ------------------------------ phase t: the chaos trace replay, full width
 T_PEAK_GB = 50.0  # phase t's budget of device memory at peak
+T_PARITY_WINDOWS = 6  # the parity replay's depth, cut from 12 for time
 # The trace's model mix (philly_like_trace(seed=0, n_jobs=14)), checked
 # against what the replay admits.
 T_MIX = {"j0": "vgg19", "j13": "vgg19", "j1": "alexnet", "j4": "alexnet",
@@ -1972,7 +2002,8 @@ def replay_run(name, cfg, device, wrappers, scale):
 
 def replay_phase(device, wrappers, scale):
     """Phase t: ``ReplayConfig()``'s chaos replay and its no-fault parity
-    replay (``chaos=False, parity_twin=True``) through
+    replay (``chaos=False, parity_twin=True``, its first T_PARITY_WINDOWS
+    windows: the script's time limit) through
     ``repro_torch.sim.replay.run_replay``, each admitted trace job at its
     paper model's full tensor inventory.  The chaos run must show the
     reference's invariants: no registry divergence, the dead trainer
@@ -1989,7 +2020,8 @@ def replay_phase(device, wrappers, scale):
     torch.cuda.reset_peak_memory_stats()
     results = {}
     for name, kw in (("chaos", {}),
-                     ("parity", dict(chaos=False, parity_twin=True))):
+                     ("parity", dict(chaos=False, parity_twin=True,
+                                     max_windows=T_PARITY_WINDOWS))):
         elastic.clear_plan_cache()
         cfg = ReplayConfig(**kw)
         report, totals, rows, wall = replay_run(name, cfg, device, wrappers,
@@ -3985,6 +4017,384 @@ def examples_phase(device, wrappers, full):
 
 
 # ----------------------------------------------------------------- main
+# ------------------------------------------------------------- phase w
+W_MOE_TOKENS = (8, 512)  # granite-moe's MoE layer: batch x sequence
+W_MOE_RMS = 1e-5  # card vs CPU, relative RMS of the layer's output
+W_TRAIN_BATCH = 8  # qwen1.5-0.5b train_4k: its batch of 256 cut to 8
+W_DRYRUN = (("qwen1.5-0.5b", "train_4k"), ("dlrm-rm2", "train_batch"),
+            ("gin-tu", "ogb_products"))
+W_DIR = ROOT / "build" / "phase_w"  # git-ignored; removed after
+
+
+class PositionRecorder:
+    """While entered, records (eid, pos) of every
+    ``repro_torch.models.moe.expert_positions`` call, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.real, self.calls = moe, moe.expert_positions, []
+
+        def recording(eid, n_experts):
+            pos = self.real(eid, n_experts)
+            self.calls.append((eid.detach().cpu(), pos.detach().cpu()))
+            return pos
+
+        moe.expert_positions = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.expert_positions = self.real
+
+
+def w_dryrun_start(out_dir: Path):
+    """w4's children, one ``repro_torch.launch.dryrun`` process a cell on
+    the 16 x 16 production mesh (fake process group, meta tensors), all
+    started at once; they run beside w1-w3."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for arch, shape in W_DRYRUN:
+        log = open(out_dir / f"{arch}__{shape}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out_dir)], cwd=ROOT,
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+        procs.append([arch, shape, proc, log, time.perf_counter(), None])
+    return procs
+
+
+def w_dryrun_finish(procs, out_dir: Path, timeout_s: float = 600.0):
+    """Wait for w4's children; print each cell's outcome (analytic, under
+    the H100 SXM's published rates) and its wall seconds."""
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while any(p[5] is None for p in procs):
+            for p in procs:
+                if p[5] is None and p[2].poll() is not None:
+                    p[5] = time.perf_counter() - p[4]
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase w4: a dry-run child did not end "
+                                     f"within {timeout_s:.0f} s")
+            time.sleep(0.2)
+    finally:
+        for arch, shape, proc, log, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for arch, shape, proc, _, _, wall in procs:
+        path = out_dir / "pod256" / f"{arch}__{shape}.json"
+        if not path.exists():
+            tail = (out_dir / f"{arch}__{shape}.log").read_text()[-1500:]
+            raise AssertionError(f"phase w4: the dry-run of {arch} {shape} "
+                                 f"wrote no record (exit {proc.returncode})"
+                                 f":\n{tail}")
+        rec = json.loads(path.read_text())
+        if rec["ok"]:
+            r = rec["roofline"]
+            print(f"phase w4 ({arch} {shape}, pod256, analytic under H100 "
+                  f"SXM constants): ok=True dominant={r['dominant']} "
+                  f"roofline_fraction={rec['roofline_fraction']:.6f} "
+                  f"t_compute_s={r['t_compute_s']:.4f} t_memory_s="
+                  f"{r['t_memory_s']:.4f} t_collective_s="
+                  f"{r['t_collective_s']:.4f} per_device_flops="
+                  f"{rec['per_device_flops']:.4e} peak_estimate_gb="
+                  f"{rec['memory']['peak_estimate_bytes'] / 1e9:.2f} "
+                  f"collectives={rec['collectives']['counts']} "
+                  f"run_s={rec['lower_s']} wall_s={wall:.1f}", flush=True)
+        else:
+            print(f"phase w4 ({arch} {shape}, pod256): ok=False error="
+                  f"{rec['error'][:300]!r} wall_s={wall:.1f}", flush=True)
+
+
+def w1_lookup(device, wrappers, mesh, full):
+    """w1: DLRM-RM2's 26 tables at the train_batch cell's batch through
+    the row-sharded lookup's mesh branch (K6 over the rank's shards, then
+    the reduce-scatter), held bit for bit against the one-device lookup.
+    Returns the counters of the mesh branch's run."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.ps import act_sharding as act
+
+    cfg = dlrm_rm2.config() if full else dlrm_rm2.smoke_config()
+    batch = dlrm_rm2.TRAIN_BATCH if full else 256
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tables = recsys.dlrm_init(cfg, gen, device)["tables"]
+    ids = torch.from_numpy(recsys_batch(
+        np.random.default_rng(7), batch, cfg.n_dense,
+        cfg.vocab_sizes)["sparse"]).to(device)
+    sync(device)
+
+    def on_mesh():
+        with act.activate(mesh):
+            return recsys.sharded_embedding_lookup(tables, ids)
+
+    reset_counters(wrappers)
+    got = on_mesh()
+    sync(device)
+    counts = read_counters(wrappers)
+    if counts["embed_bag"] != 1:
+        raise AssertionError(f"phase w1: {counts['embed_bag']} K6 launches "
+                             f"for one mesh lookup (one expected)")
+    want = recsys.sharded_embedding_lookup(tables, ids)
+    if tuple(got.shape) != tuple(want.shape) or not bits_equal(
+            got.to_local(), want):
+        raise AssertionError("phase w1: the mesh branch's lookup differs "
+                             "from the one-device lookup")
+    ms_mesh = time_ms(on_mesh, device)
+    ms_one = time_ms(lambda: recsys.sharded_embedding_lookup(tables, ids),
+                     device)
+    table_gb = sum(t.numel() * t.element_size() for t in tables) / 1e9
+    print(f"phase w1 (DLRM-RM2 lookup on the host mesh, {len(tables)} "
+          f"tables, {table_gb:.2f} GB, batch={batch}): mesh branch (K6 over "
+          f"the rank's row shards + reduce-scatter + constrain) equal to the "
+          f"one-device lookup bit for bit; mesh_ms={ms_mesh:.4f} "
+          f"one_device_ms={ms_one:.4f} placements={tuple(got.placements)} "
+          f"counters={counts}", flush=True)
+    del tables, got, want
+    free_device()
+    return counts
+
+
+def _w2_inputs(full):
+    """granite-moe's MoE layer and its inputs, drawn on the CPU from seed
+    0 (the card's run gets copies; the CPU child draws the same)."""
+    from repro_torch.configs import granite_moe_1b_a400m as gm
+    from repro_torch.models import moe
+
+    lm = gm.config() if full else gm.smoke_config()
+    b, s = W_MOE_TOKENS if full else (2, 64)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+
+    def normal(shape, scale, dtype):
+        return (scale * torch.randn(shape, generator=gen)).to(dtype)
+
+    params = moe.init_moe_params(normal, lm.d_model, lm.moe, torch.float32)
+    x = torch.randn((b, s, lm.d_model), generator=gen)
+    return lm, params, x
+
+
+def _w2_run(mesh, lm, params, x):
+    """moe_ffn_sharded on the mesh: (y, losses, eid, pos) as local
+    tensors, the routing recorded from its one expert_positions call."""
+    from repro_torch.models import moe
+    from repro_torch.ps import act_sharding as act
+
+    with PositionRecorder() as rec, act.activate(mesh):
+        y, losses = moe.moe_ffn_sharded(x, params, lm.moe)
+    (eid, pos), = rec.calls
+    return y.to_local(), losses.to_local(), eid, pos
+
+
+def w2_cpu(out_path, full):
+    """w2's comparison run, in a child process: the same layer on the
+    same inputs on a one-rank gloo mesh on the CPU."""
+    _import_port()
+    from repro_torch.launch.mesh import close_mesh, make_host_mesh
+
+    lm, params, x = _w2_inputs(full == "full")
+    mesh = make_host_mesh("cpu")
+    y, losses, eid, pos = _w2_run(mesh, lm, params, x)
+    torch.save({"y": y, "losses": losses, "eid": eid, "pos": pos}, out_path)
+    close_mesh()
+
+
+def w2_cpu_start(full):
+    """Start w2's CPU child; it runs beside w1."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke.w2_cpu(*sys.argv[1:])",
+         str(W_DIR / "w2_out.pt"), "full" if full else "smoke"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def w2_moe(device, mesh, full, child):
+    """w2: granite-moe-1b-a400m's MoE layer at its published widths,
+    float32, through ``moe_ffn_sharded`` on the host mesh, held against
+    the same function on the CPU (a one-rank gloo mesh in a child
+    process) on the same weights: the dropped (token, choice) sets equal,
+    routing flips 0, the output within W_MOE_RMS relative RMS."""
+    lm, params, x = _w2_inputs(full)
+    params = {k: v.to(device) for k, v in params.items()}
+    x = x.to(device)
+    t0 = time.perf_counter()
+    y, losses, eid, pos = _w2_run(mesh, lm, params, x)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    from repro_torch.models import moe
+    from repro_torch.ps import act_sharding as act
+
+    def on_mesh():
+        with act.activate(mesh):
+            return moe.moe_ffn_sharded(x, params, lm.moe)
+
+    ms = time_ms(on_mesh, device, reps=5, warmup=1, inner=2)
+    t0 = time.perf_counter()
+    if child.wait(timeout=600) != 0:
+        raise AssertionError(f"phase w2: the CPU child exited "
+                             f"{child.returncode}")
+    wait_s = time.perf_counter() - t0
+    ref = torch.load(W_DIR / "w2_out.pt")
+    t, k = x.shape[0] * x.shape[1], lm.moe.top_k
+    cap = max(1, -(-int(lm.moe.capacity_factor * t * k) // lm.moe.n_experts))
+    dropped = torch.nonzero(pos >= cap)[:, 0]
+    dropped_ref = torch.nonzero(ref["pos"] >= cap)[:, 0]
+    flips = int((eid.reshape(t, k).sort(-1).values
+                 != ref["eid"].reshape(t, k).sort(-1).values).any(-1).sum())
+    yc = y.cpu().double()
+    rms = float(torch.sqrt(torch.mean((yc - ref["y"].double()) ** 2))
+                / torch.sqrt(torch.mean(ref["y"].double() ** 2)))
+    loss_rel = abs(float(losses) - float(ref["losses"])) / abs(
+        float(ref["losses"]))
+    print(f"phase w2 (granite-moe-1b-a400m MoE layer, d_model={lm.d_model} "
+          f"E={lm.moe.n_experts} top_k={k} d_ff={lm.moe.d_ff} cf="
+          f"{lm.moe.capacity_factor}, float32, {tuple(x.shape[:2])} tokens, "
+          f"capacity {cap} a device): card vs CPU (gloo) dropped="
+          f"{dropped.numel()} vs {dropped_ref.numel()} routing_flips={flips} "
+          f"rel_rms={rms:.3e} (bound {W_MOE_RMS:g}) aux_rel={loss_rel:.3e} "
+          f"ms={ms:.3f} first_s={first_s:.2f} cpu_child_wait_s={wait_s:.1f}",
+          flush=True)
+    if flips or not torch.equal(dropped, dropped_ref):
+        raise AssertionError(f"phase w2: routing differs between the card "
+                             f"and the CPU ({flips} flips, dropped sets "
+                             f"{'equal' if torch.equal(dropped, dropped_ref) else 'differ'})")
+    if not rms <= W_MOE_RMS or not loss_rel <= W_MOE_RMS:
+        raise AssertionError(f"phase w2: output rel RMS {rms:.3e} or aux "
+                             f"losses {loss_rel:.3e} over {W_MOE_RMS:g}")
+    del params, x, y
+    free_device()
+
+
+def _whole(t):
+    """A DTensor's global value as a plain tensor; a tensor as is."""
+    from torch.distributed.tensor import DTensor
+
+    while isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t
+
+
+def w3_train_cell(device, mesh, full):
+    """w3: qwen1.5-0.5b's train_4k cell from ``build_cell`` on the host
+    mesh, its batch cut to W_TRAIN_BATCH: one step with DTensor params
+    (``LoweredCell.lower``, under ``op_cost.OpCost``) against the same
+    step on plain tensors, loss and every updated leaf bit for bit."""
+    from repro_torch.arch import ShapeCell
+    from repro_torch.configs import registry
+    from repro_torch.launch import cells, op_cost
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.tree import tree_leaves_by_key
+    from torch.distributed.tensor import DTensor
+
+    arch, shape = "qwen1.5-0.5b", "train_4k"
+    spec = registry.spec(arch)
+    if full:
+        cell = cells.build_cell(arch, shape, mesh)
+        batch_n, seq = W_TRAIN_BATCH, spec.cell(shape).seq
+        cfg = dataclasses.replace(spec.model,
+                                  **spec.cell(shape).model_overrides)
+    else:  # the smoke config through the same cell constructor
+        spec = dataclasses.replace(spec,
+                                   model=registry.get_smoke_config(arch))
+        sc = ShapeCell("train", "train", batch=2, seq=64,
+                       model_overrides={"attn_chunk_k": 16})
+        cell = cells._lm_cell(spec, sc, mesh)
+        batch_n, seq = 2, 64
+        cfg = dataclasses.replace(spec.model, attn_chunk_k=16)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = tf.init_params(cfg, gen, device)
+    state = {"params": params, "opt": adam(3e-4).init(params)}
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab, (batch_n, seq + 1), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(device)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain_state, plain_m = cell.fn(state, batch)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with op_cost.OpCost() as oc:
+        mesh_state, mesh_m = cell.lower((state, batch))
+    sync(device)
+    mesh_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not bits_equal(_whole(mesh_m["loss"]), _whole(plain_m["loss"])):
+        raise AssertionError(f"phase w3: loss {float(plain_m['loss'])} on "
+                             f"plain tensors, "
+                             f"{float(_whole(mesh_m['loss']))} with "
+                             f"DTensor params")
+    got = tree_leaves_by_key({"params": mesh_state["params"],
+                              "mu": mesh_state["opt"].mu,
+                              "nu": mesh_state["opt"].nu})
+    want = tree_leaves_by_key({"params": plain_state["params"],
+                               "mu": plain_state["opt"].mu,
+                               "nu": plain_state["opt"].nu})
+    kinds = {"dtensor leaves (DTensor step)": sum(
+        isinstance(v, DTensor) for v in got.values()),
+        "dtensor leaves (plain step)": sum(
+            isinstance(v, DTensor) for v in want.values())}
+    bad = [k for k in want if not bits_equal(_whole(got[k]),
+                                             _whole(want[k]))]
+    if bad:
+        raise AssertionError(f"phase w3: {len(bad)} updated leaves differ "
+                             f"between the DTensor step and the plain one, "
+                             f"e.g. {bad[:4]}")
+    model_flops = cell.model_flops_per_step * batch_n / spec.cell(
+        shape).batch if full else cell.model_flops_per_step
+    print(f"phase w3 ({arch} {shape} from build_cell on the host mesh, "
+          f"batch cut {spec.cell(shape).batch}->{batch_n}, seq={seq}, "
+          f"{cfg.dtype}, adam(3e-4)): loss={float(plain_m['loss']):.5f}; "
+          f"the DTensor step's loss and {len(want)} updated leaves (params, "
+          f"mu, nu) equal the plain step's bit for bit; op_cost_flops="
+          f"{oc.cost.flops:.4e} model_flops_per_step={model_flops:.4e} "
+          f"(ratio {oc.cost.flops / model_flops:.3f}) op_cost_bytes="
+          f"{oc.cost.bytes:.4e} plain_step_s={plain_s:.2f} dtensor_step_s="
+          f"{mesh_s:.2f} max_memory_allocated_gb={peak / 1e9:.2f} {kinds}",
+          flush=True)
+    del state, params, plain_state, mesh_state
+    free_device()
+
+
+def mesh_phase(device, wrappers, full):
+    """Phase w: the mesh layer on a one-rank host mesh (NCCL on the card).
+    w4's dry-run children start first and run beside w1-w3.  Returns the
+    counters of w1's mesh lookup (the only kernel launches of the
+    phase's main path)."""
+    from repro_torch.launch.mesh import close_mesh, make_host_mesh
+
+    t0 = time.perf_counter()
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    W_DIR.mkdir(parents=True)
+    procs = w_dryrun_start(W_DIR) if full else []
+    child = w2_cpu_start(full)
+    try:
+        mesh = make_host_mesh(device)
+        counts = w1_lookup(device, wrappers, mesh, full)
+        w2_moe(device, mesh, full, child)
+        w3_train_cell(device, mesh, full)
+        close_mesh()
+        if full:
+            w_dryrun_finish(procs, W_DIR)
+    finally:
+        for p in procs:
+            if p[2].poll() is None:
+                p[2].kill()
+                p[2].wait()
+            p[3].close()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(W_DIR, ignore_errors=True)
+    print(f"phase w: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -4245,6 +4655,11 @@ def main() -> int:
     _require(counts_v, ("agg_adam_multijob_fused", "agg_adam_dense"), "v")
     add_totals(counts_v)
 
+    # ---- phase w: the mesh layer on a one-rank host mesh; the dry-run
+    counts_w = mesh_phase(device, wrappers, full)
+    _require(counts_w, ("embed_bag",), "w")
+    add_totals(counts_w)
+
     # ---- report
     k1_src = "src/repro_torch/kernels/agg_adam/csrc/agg_adam.cu"
     rl_src = "src/repro_torch/kernels/relayout/csrc/relayout.cu"
@@ -4284,7 +4699,7 @@ def main() -> int:
         "embed_bag": (
             "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
             "src/repro/kernels/embed_bag/kernel.py:34",
-            totals["embed_bag"]),  # phases i and j
+            totals["embed_bag"]),  # phases i, j and w
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

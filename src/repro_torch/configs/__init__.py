@@ -4,6 +4,6 @@
   for the control plane.
 - one module per architecture (the LMs, ``dlrm_rm2``, ``dlrm_mlperf``,
   ``sasrec``, ``dien``, ``gin_tu``) exposing ``config()`` (published
-  dims) and ``smoke_config()`` (reduced).
+  dims), ``smoke_config()`` (reduced) and ``spec()`` (its cells).
 - ``registry``: arch id -> config constructors, for --arch flags.
 """

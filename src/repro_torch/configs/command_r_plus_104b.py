@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, lm_cells
 from ..models.transformer import LMConfig
 
 
@@ -33,4 +34,14 @@ def smoke_config() -> LMConfig:
     return dataclasses.replace(
         config(), n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=352,
         vocab=512, max_seq_len=128, dtype="float32", loss_chunk=16,
+    )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="command-r-plus-104b",
+        family="lm",
+        model=config(),
+        cells=lm_cells(train_microbatches=16),
+        notes="104B dense; largest dense cell; FSDP+TP+SP sharding.",
     )

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, lm_cells
 from ..models.moe import MoEConfig
 from ..models.transformer import LMConfig, MLAConfig
 
@@ -41,4 +42,16 @@ def smoke_config() -> LMConfig:
                       qk_rope_dim=8, v_head_dim=16),
         moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=2,
                       d_ff_shared=64, capacity_factor=1.5),
+    )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="deepseek-v2-236b",
+        family="lm",
+        model=config(),
+        cells=lm_cells(train_microbatches=16),
+        notes="MLA compressed KV (absorbed decode) + 160-expert EP; the "
+              "paper-representative MoE cell (expert tensors are migration "
+              "units).",
     )

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec
 from ..models.recsys import DIENConfig
 
 
@@ -19,3 +20,17 @@ def config() -> DIENConfig:
 def smoke_config() -> DIENConfig:
     return dataclasses.replace(config(), n_items=500, n_cats=50, embed_dim=6,
                                seq_len=12, gru_dim=20, mlp_dims=(24, 8))
+
+
+def spec() -> ArchSpec:
+    from .dlrm_rm2 import recsys_cells
+
+    return ArchSpec(
+        arch_id="dien",
+        family="recsys",
+        recsys_kind="dien",
+        model=config(),
+        cells=recsys_cells(),
+        notes="GRU interest extraction + AUGRU; recurrence is lax.scan; "
+              "retrieval runs per-candidate AUGRU (heavy, sharded).",
+    )

@@ -10,6 +10,7 @@ dlrm reference configuration).  Its tables, 187.8 M rows x 128 float32
 
 from __future__ import annotations
 
+from ..arch import ArchSpec
 from ..models.recsys import DLRMConfig
 
 CRITEO_TB_VOCAB = (
@@ -31,4 +32,18 @@ def smoke_config() -> DLRMConfig:
     return DLRMConfig(
         name="dlrm-mlperf-smoke", n_dense=13, n_sparse=4, embed_dim=16,
         bot_mlp=(32, 16), top_mlp=(32, 16, 1), vocab_sizes=(1000, 50, 200, 3),
+    )
+
+
+def spec() -> ArchSpec:
+    from .dlrm_rm2 import recsys_cells
+
+    return ArchSpec(
+        arch_id="dlrm-mlperf",
+        family="recsys",
+        recsys_kind="dlrm",
+        model=config(),
+        cells=recsys_cells(),
+        notes="~188M embedding rows x 128 = 96 GB of tables; row-sharded "
+              "over the full mesh (PS-style sharded EmbeddingBag).",
     )

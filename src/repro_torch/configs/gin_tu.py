@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, ShapeCell
 from ..models.gnn import GINConfig
 
 
@@ -43,4 +44,21 @@ def model_for_shape(shape: str) -> GINConfig:
     s = GRAPH_SHAPES[shape]
     return dataclasses.replace(
         config(), d_feat=s["d_feat"], n_classes=s["n_classes"], task=s["task"]
+    )
+
+
+def spec() -> ArchSpec:
+    cells = {
+        name: ShapeCell(name=name, kind="train", extras=dict(sh))
+        for name, sh in GRAPH_SHAPES.items()
+    }
+    return ArchSpec(
+        arch_id="gin-tu",
+        family="gnn",
+        model=config(),
+        cells=cells,
+        notes="Message passing = take + segment_sum; minibatch_lg uses the "
+              "real fanout-(15,10) NeighborSampler. Aggregation placement "
+              "applies (5 weight tensors) but is a small term vs graph "
+              "scatter cost -- recorded, not skipped.",
     )

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, lm_cells
 from ..models.transformer import LMConfig
 
 
@@ -30,4 +31,14 @@ def smoke_config() -> LMConfig:
     return dataclasses.replace(
         config(), n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=448,
         vocab=512, max_seq_len=128, dtype="float32", loss_chunk=16,
+    )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="granite-8b",
+        family="lm",
+        model=config(),
+        cells=lm_cells(train_microbatches=2),
+        notes="Mid-size dense llama-arch.",
     )

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, lm_cells
 from ..models.moe import MoEConfig
 from ..models.transformer import LMConfig
 
@@ -34,4 +35,14 @@ def smoke_config() -> LMConfig:
         config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         vocab=512, max_seq_len=128, dtype="float32", loss_chunk=16,
         moe=MoEConfig(n_experts=4, top_k=2, d_ff=32, capacity_factor=1.5),
+    )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="granite-moe-1b-a400m",
+        family="lm",
+        model=config(),
+        cells=lm_cells(train_microbatches=1),
+        notes="Fine-grained MoE; experts are first-class aggregation tasks.",
     )

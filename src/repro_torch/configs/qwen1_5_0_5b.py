@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec, lm_cells
 from ..models.transformer import LMConfig
 
 
@@ -30,4 +31,14 @@ def smoke_config() -> LMConfig:
     return dataclasses.replace(
         config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=176,
         vocab=512, max_seq_len=128, dtype="float32", loss_chunk=16,
+    )
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="qwen1.5-0.5b",
+        family="lm",
+        model=config(),
+        cells=lm_cells(train_microbatches=1),
+        notes="Small dense LM; vocab dominates params (QKV bias exercised).",
     )

@@ -2,9 +2,10 @@
 config constructors.
 
 Every arch id of the reference is listed and ported.  Each arch module
-exposes ``config()`` (the published dims) and ``smoke_config()`` (a
-reduced config of the same family for CPU tests); ``gin_tu`` also its
-four ``GRAPH_SHAPES`` and ``model_for_shape``.  Modules are imported
+exposes ``config()`` (the published dims), ``smoke_config()`` (a
+reduced config of the same family for CPU tests) and ``spec()`` (its
+``ArchSpec``: the reference's cells); ``gin_tu`` also its four
+``GRAPH_SHAPES`` and ``model_for_shape``.  Modules are imported
 lazily.
 """
 
@@ -53,6 +54,11 @@ def get_config(arch: str) -> Any:
 
 def get_smoke_config(arch: str) -> Any:
     return _module(arch).smoke_config()
+
+
+def spec(arch: str) -> Any:
+    """The arch's ``ArchSpec`` (``repro_torch.arch``)."""
+    return _module(arch).spec()
 
 
 def list_archs() -> List[str]:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..arch import ArchSpec
 from ..models.recsys import SASRecConfig
 
 
@@ -20,3 +21,17 @@ def config() -> SASRecConfig:
 
 def smoke_config() -> SASRecConfig:
     return dataclasses.replace(config(), n_items=500, embed_dim=16, seq_len=10)
+
+
+def spec() -> ArchSpec:
+    from .dlrm_rm2 import recsys_cells
+
+    return ArchSpec(
+        arch_id="sasrec",
+        family="recsys",
+        recsys_kind="sasrec",
+        model=config(),
+        cells=recsys_cells(),
+        notes="Sequential self-attention recommender; retrieval = last-state "
+              "dot against the item table.",
+    )

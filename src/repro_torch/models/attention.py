@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attn import ops as flash_ops
+from ..ps import act_sharding as act
 
 NEG_INF = -1e30
 
@@ -54,10 +55,28 @@ def full_attention(q, k, v, causal: bool = True,
 
 def chunked_attention(q, k, v, causal: bool = True, chunk_k: int = 1024,
                       scale: Optional[float] = None):
-    """Online-softmax attention over KV chunks. Memory O(S * chunk)."""
+    """Online-softmax attention over KV chunks. Memory O(S * chunk).
+
+    Under activation sharding (TP on the head dim), GQA KV heads are
+    expanded to the query-head count so every intermediate carries the
+    tp-sharded head dim (hk alone seldom divides the model axis), and
+    the chunks run on each device's shards (``act.per_device``)."""
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
+    if act.enabled():
+        if hk != hq:
+            k = _expand_kv(k, hq // hk)
+            v = _expand_kv(v, hq // hk)
+        return act.per_device(
+            lambda q, k, v: _chunked(q, k, v, causal, chunk_k, scale),
+            ("dp", None, "tp", None), q, k, v)
+    return _chunked(q, k, v, causal, chunk_k, scale)
+
+
+def _chunked(q, k, v, causal, chunk_k, scale):
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
     g = hq // hk
     n_chunks = max(1, sk // chunk_k)
     chunk_k = sk // n_chunks
@@ -98,6 +117,8 @@ def decode_attention(q, k_cache, v_cache, cache_len=None,
     smax, hk = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
     g = hq // hk
+    if g > 1:  # under a mesh: q's heads whole, to group them by kv head
+        q = act.whole_dim(q, 2)
     qg = (q * scale).reshape(b, hk, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
     if cache_len is not None:

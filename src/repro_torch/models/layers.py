@@ -12,6 +12,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..ps import act_sharding as act
+
 
 def normal_init(generator: torch.Generator, shape, stddev: float = 0.02,
                 dtype=torch.float32, device=None) -> torch.Tensor:
@@ -112,6 +114,10 @@ def chunked_softmax_xent(hidden, unembed, labels, chunk: int = 512,
     v = unembed.shape[-1]
     n_chunks = max(1, s // chunk)
     chunk = s // n_chunks  # require divisibility; configs ensure it
+    # Under a mesh the sequence-parallel hidden is gathered first: a
+    # DTensor view cannot split a sharded dim into fewer chunks than
+    # shards (GSPMD reshards inside the reference's scan instead).
+    hidden = act.constrain(hidden, "dp", None, None)
     hid = hidden.reshape(b, n_chunks, chunk, d)
     lab = labels.reshape(b, n_chunks, chunk)
     pad_mask = None
@@ -122,11 +128,19 @@ def chunked_softmax_xent(hidden, unembed, labels, chunk: int = 512,
     for i in range(n_chunks):
         h, y = hid[:, i], lab[:, i]
         logits = torch.einsum("bcd,dv->bcv", h, unembed).float()
+        logits = act.constrain(logits, "dp", None, "tp")  # vocab over tp
         if pad_mask is not None:
             logits = torch.where(pad_mask, logits, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            torch.clamp(y, min=0).long()[..., None])[..., 0]
+        if act.enabled():
+            # vocab-sharded logits: select the label column by a mask and
+            # a sum (one nonzero term: the same value), which DTensor
+            # shards along the vocab; its gather from a sharded dim fails
+            hit = torch.arange(v, device=hidden.device) == y[..., None]
+            gold = torch.where(hit, logits, 0.0).sum(-1)
+        else:
+            gold = torch.gather(logits, -1,
+                                torch.clamp(y, min=0).long()[..., None])[..., 0]
         mask = (y >= 0).float()
         nll = (lse - gold) * mask
         if label_smoothing:

@@ -13,8 +13,11 @@ all k choices gives the same buffer, with no accumulation, which keeps it
 deterministic on CUDA.  The expert products are ``torch.einsum``, as the
 reference leaves them to XLA; nothing here is a kernel of its own.
 
-The expert-parallel ``moe_ffn_sharded`` (``shard_map`` over a mesh) is
-not ported (ROADMAP.md, Queue 1 item 16).
+Under an activation-sharding context (``ps.act_sharding``) the hooks
+below redistribute DTensors as the reference's ``act.constrain`` points
+do, and ``moe_ffn_sharded`` is the reference's expert-parallel path: a
+per-device region with an all-to-all over the ``model`` axis.  With no
+context every hook returns its argument and nothing changes.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
+from ..ps import act_sharding as act
 from .layers import silu
 
 
@@ -95,22 +101,28 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
     # choices of the group's tokens.
     idx_g = idx.reshape(g, tg, k)
     gates_g = gates.reshape(g, tg, k)
-    pos_g = expert_positions(idx_g.reshape(g, tg * k), e).reshape(g, tg, k)
+    pos_g = act.per_device(lambda i: expert_positions(i, e), (),
+                           idx_g.reshape(g, tg * k)).reshape(g, tg, k)
     slot = torch.clamp(pos_g, max=capacity)  # overflow -> slot C (dropped)
     gidx = torch.arange(g, device=x.device)[:, None, None]
 
     # Dispatch: one index write of every (token, choice); the kept slots
     # are distinct, only slot C is written more than once.
-    xg = x.reshape(g, tg, 1, d).expand(g, tg, k, d)
+    xg = act.constrain(x.reshape(g, tg, d), "dp", None, None)
+    xg = xg.reshape(g, tg, 1, d).expand(g, tg, k, d)
     buf = torch.zeros((g, e, capacity + 1, d), dtype=x.dtype,
                       device=x.device)
     buf = buf.index_put((gidx, idx_g, slot), xg)[:, :, :capacity]
+    buf = act.constrain(buf, "dp", "tp", None, None)  # the EP exchange
 
-    # Expert computation (SwiGLU).
+    # Expert computation (SwiGLU), experts over "model".
     h = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
+    h = act.constrain(h, "dp", "tp", None, None)
     u = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
     out = torch.einsum("gecf,efd->gecd", silu(h) * u, params["w_down"])
+    out = act.constrain(out, "dp", "tp", None, None)
     out = torch.cat([out, out.new_zeros((g, e, 1, d))], dim=2)
+    out = act.constrain(out, "dp", None, None, None)  # back to group-local
 
     # Combine: k gathers, gate-weighted, summed in x.dtype.
     gidx = gidx[:, :, 0]
@@ -123,10 +135,115 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
     # Shared experts (always-on path, DeepSeek-style).
     if cfg.d_ff_shared > 0:
         sh = silu(x @ params["shared_gate"]) * (x @ params["shared_up"])
+        sh = act.constrain(sh, "dp", "tp")
         y = y + sh @ params["shared_down"]
 
     losses = cfg.aux_loss_coef * aux + cfg.router_z_coef * z
     return y, losses
+
+
+def moe_ffn_sharded(x3d, params: dict, cfg: MoEConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the context's mesh (the reference's
+    production path); x3d (B, S, d) with B divisible by the data axes and
+    E by the ``model`` axis.  Returns (y (B, S, d), aux losses scalar),
+    both DTensors.
+
+    Tokens stay in their sequence-parallel layout (B over the data axes,
+    S over ``model`` where it divides).  Per device: routing on its own
+    tokens, capacity dispatch into an (E, C_loc + 1, d) buffer, an
+    all-to-all over ``model`` so that each rank receives the rows bound
+    for its E/tp experts from every peer, the local expert products, the
+    all-to-all back, and the gate-weighted combine.  Capacity is per
+    device, ``C_loc = ceil(cf * t_loc * k / E)`` (the reference's
+    ``-(-int(cf * t_loc * k) // E)``), not ``moe_ffn``'s per-group floor.
+    The router's load-balance and z statistics are summed over the ranks
+    that split the tokens.  The collectives are the autograd-capable
+    functional ones, so training runs through it.  Where S does not
+    divide by ``model`` (decode), every ``model`` rank routes the same
+    tokens, as the reference's do; that path is forward only.
+    """
+    ctx = act._current()
+    mesh = ctx["mesh"]
+    names = ctx["all"]
+    tp_dim = names.index(ctx["tp"][0])
+    dp_dims = [names.index(a) for a in ctx["dp"]]
+    n_tp = mesh.shape[tp_dim]
+    x3d = act.as_dtensor(x3d, mesh)
+    b, s, d = x3d.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if e % n_tp:
+        raise ValueError(f"experts {e} must divide the model axis {n_tp}")
+    s_sharded = s % n_tp == 0
+    split = dp_dims + ([tp_dim] if s_sharded else [])
+
+    def pl(shard_dims_of: dict, default):
+        out = [default] * mesh.ndim
+        for md, p in shard_dims_of.items():
+            out[md] = p
+        return out
+
+    tok = act.resolve(ctx, (b, s, d), ("dp", "tp" if s_sharded else None))
+    x_loc = act.local_in(x3d, mesh, tok)
+    router = act.local_in(params["router"], mesh,
+                          [Replicate()] * mesh.ndim,
+                          pl({md: Partial() for md in split}, Replicate()))
+    w_pl = pl({tp_dim: Shard(0)}, Replicate())
+    w_grad = pl({**{md: Partial() for md in dp_dims}, tp_dim: Shard(0)},
+                Replicate())
+    w_gate, w_up, w_down = (act.local_in(params[n], mesh, w_pl, w_grad)
+                            for n in ("w_gate", "w_up", "w_down"))
+
+    # Routing on this rank's tokens.
+    bl, sl, _ = x_loc.shape
+    t_loc = bl * sl
+    x2 = x_loc.reshape(t_loc, d)
+    logits = x2.float() @ router.float()  # (t_loc, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    if cfg.normalize_gates:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates = gates.to(x2.dtype)
+    stats = torch.cat([
+        probs.sum(0), F.one_hot(idx[:, 0], e).float().sum(0),
+        torch.square(torch.logsumexp(logits, dim=-1)).sum()[None]])
+    stats = act.sum_over(stats, mesh, split) / float(b * s)
+    aux = e * torch.sum(stats[e:2 * e] * stats[:e])
+    z = stats[2 * e]
+
+    # Dispatch into (E, C_loc + 1, d); overflow lands in slot C (dropped).
+    cap = max(1, -(-int(cfg.capacity_factor * t_loc * k) // e))
+    eid = idx.reshape(-1)
+    pos = expert_positions(eid, e)
+    slot = torch.clamp(pos, max=cap)
+    x_rep = x2[:, None, :].expand(t_loc, k, d).reshape(-1, d)
+    buf = x2.new_zeros((e, cap + 1, d)).index_put((eid, slot), x_rep)
+    send = buf[:, :cap].reshape(n_tp, e // n_tp, cap, d).contiguous()
+
+    # EP exchange: each peer gets its experts' rows; mine come back.
+    group = (mesh, tp_dim)
+    recv = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        send, None, None, group))
+    rows = recv.transpose(0, 1).reshape(e // n_tp, n_tp * cap, d)
+    h = torch.einsum("ecd,edf->ecf", rows, w_gate)
+    u = torch.einsum("ecd,edf->ecf", rows, w_up)
+    out = torch.einsum("ecf,efd->ecd", silu(h) * u, w_down)
+    back = out.reshape(e // n_tp, n_tp, cap, d).transpose(0, 1).contiguous()
+    mine = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        back, None, None, group)).reshape(e, cap, d)
+    out_full = torch.cat([mine, mine.new_zeros((e, 1, d))], dim=1)
+
+    picked = out_full[eid, slot].reshape(t_loc, k, d)
+    y = torch.einsum("tk,tkd->td", gates, picked).reshape(bl, sl, d)
+    y = act.local_out(y, mesh, tok, (b, s, d))
+
+    if cfg.d_ff_shared > 0:
+        sh = silu(x3d @ params["shared_gate"]) * (x3d @ params["shared_up"])
+        sh = act.constrain(sh, "dp", None, "tp")
+        y = y + sh @ params["shared_down"]
+
+    losses = cfg.aux_loss_coef * aux + cfg.router_z_coef * z
+    return y, act.local_out(losses, mesh, [Replicate()] * mesh.ndim)
 
 
 def init_moe_params(normal, d_model: int, cfg: MoEConfig, dtype,

@@ -22,10 +22,11 @@ here; no TPU kernel runs in either.
 
 ``lookup="plain"`` routes DLRM's lookups through K6's plain version
 instead of the kernel (on any device): the check that the kernel's
-training step equals the plain one bit for bit.  The reference's mesh
-branch (shard_map + psum_scatter over row-sharded tables) has no
-one-card counterpart yet (ROADMAP.md, Queue 1 item 16).  ``lax.scan``
-becomes a Python loop over the sequence.
+training step equals the plain one bit for bit.  Under an
+activation-sharding context (``ps.act_sharding``) the lookup is the
+reference's mesh branch: K6 over each rank's row shards, then a
+reduce-scatter (``sharded_embedding_lookup``).  ``lax.scan`` becomes a
+Python loop over the sequence.
 """
 
 from __future__ import annotations
@@ -35,11 +36,14 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..device import resolve_device
 from ..kernels.embed_bag import ops as eb_ops
 from ..kernels.embed_bag import ref as eb_ref
+from ..ps import act_sharding as act
 from ..tree import value_and_grad
 from .layers import mlp, normal_init
 
@@ -47,7 +51,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LOOKUPS = ("kernel", "plain")
 
 
-def _generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+def _generator(generator: Optional[torch.Generator], device
+               ) -> Optional[torch.Generator]:
+    """``generator``, or one seeded 0 on ``device``; None on ``meta``,
+    which draws shapes only."""
+    if device.type == "meta":
+        return None
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
@@ -82,7 +91,10 @@ class _BagSums(torch.autograd.Function):
     def forward(ctx, ids, plain: bool, *tables):
         ctx.save_for_backward(ids)
         ctx.tables = [(t.shape[0], t.dtype) for t in tables]
-        fn = eb_ref.embedding_bags_plain if plain else eb_ops.embedding_bags
+        # meta tensors (the mesh dry-run) carry shapes only: the plain
+        # version's ops give the output's, and no kernel has a meta route
+        fn = (eb_ref.embedding_bags_plain
+              if plain or ids.device.type == "meta" else eb_ops.embedding_bags)
         return fn(tables, ids)
 
     @staticmethod
@@ -140,21 +152,75 @@ def embedding_bag(table, indices, offsets=None, weights=None, mode="sum", *,
 
 
 # ------------------------------------------------- sharded embedding lookup
-def sharded_embedding_lookup(tables, ids, *, lookup: str = "kernel"):
+def sharded_embedding_lookup(tables, ids, *, lookup: str = "kernel",
+                             chunk: int = 65536):
     """tables: list of (V_i_padded, D) of one dtype; ids: (B, n_fields)
-    int -> (B, n_fields, D) in the tables' dtype: one K6 launch, a bag of
-    one row per field (see the module docstring).  On one device only:
-    the reference's mesh branch is not ported."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "the row-sharded lookup over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 16)")
+    int -> (B, n_fields, D) in the tables' dtype.
+
+    With no activation-sharding context: one K6 launch, a bag of one row
+    per field (see the module docstring).  Under ``act.activate(mesh)``:
+    the reference's PS-style model-parallel lookup.  The tables are
+    row-sharded over the full mesh (DTensors, or full tensors taken as
+    replicated and sliced locally) and the ids replicated; each rank
+    offsets the ids by ``flat_rank * V_loc``, clamps them into its shard
+    (K6 reads its ids unchecked and must never see one outside the
+    shard), runs one table-batched K6 launch over its shards, zeroes the
+    rows it does not own, and a reduce-scatter over the group of every
+    axis sums the partials and leaves the result row-sharded, constrained
+    to the data axes at the end.  Batches over ``chunk`` rows pad to a
+    whole number of chunks and run chunk by chunk (the reference's
+    ``lax.map``); the batch is permuted first so that each rank's rows of
+    the chunks line up as one contiguous block of the result.
+    """
     if lookup not in LOOKUPS:
         raise ValueError(f"lookup must be one of {LOOKUPS}, got {lookup!r}")
-    ids = ids if ids.dtype == torch.int32 else ids.int()
-    return _BagSums.apply(ids[:, :, None], lookup == "plain",
-                          *tables).to(tables[0].dtype)
+    ctx = act._current()
+    if ctx is None:
+        ids = ids if ids.dtype == torch.int32 else ids.int()
+        return _BagSums.apply(ids[:, :, None], lookup == "plain",
+                              *tables).to(tables[0].dtype)
+    mesh = ctx["mesh"]
+    n_dev = mesh.size()
+    group = act.world_group(mesh)
+    flat = act.flat_rank(mesh)
+    rows = [Shard(0)] * mesh.ndim
+    rep = [Replicate()] * mesh.ndim
+    tables_loc = [act.local_in(t, mesh, rows) for t in tables]
+    ids_rep = act.local_in(ids, mesh, rep)
+    ids_rep = ids_rep if ids_rep.dtype == torch.int32 else ids_rep.int()
+    b, n_fields = ids_rep.shape
+    d = tables_loc[0].shape[1]
+
+    # reduce-scatter needs the batch (or the chunk) divisible by the
+    # device count; large batches pad to a whole number of chunks.
+    pad_unit = chunk if b > chunk else n_dev
+    pad = (-b) % pad_unit
+    if pad:
+        ids_rep = torch.cat([ids_rep, ids_rep.new_zeros((pad, n_fields))])
+    bp = b + pad
+    n_chunks = bp // chunk if (bp > chunk and bp % chunk == 0) else 1
+    rows_c = bp // n_chunks
+    # chunk c holds, for rank r, the rows r * bp/n + c * rows_c/n onwards
+    ids_c = ids_rep.reshape(n_dev, n_chunks, rows_c // n_dev,
+                            n_fields).transpose(0, 1).reshape(
+                                n_chunks, rows_c, n_fields)
+    vloc = torch.tensor([t.shape[0] for t in tables_loc], dtype=torch.int32,
+                        device=ids_rep.device)
+    outs = []
+    for c in range(n_chunks):
+        local = ids_c[c] - flat * vloc
+        ok = (local >= 0) & (local < vloc)
+        local = torch.minimum(torch.clamp(local, min=0), vloc - 1)
+        part = _BagSums.apply(local[:, :, None], lookup == "plain",
+                              *tables_loc).to(tables_loc[0].dtype)
+        part = part * ok[:, :, None].to(part.dtype)
+        outs.append(funcol.wait_tensor(funcol.reduce_scatter_tensor_autograd(
+            part, "sum", 0, group)))
+    out = outs[0] if n_chunks == 1 else torch.cat(outs)
+    out = act.local_out(out, mesh, rows, (bp, n_fields, d))
+    if pad:
+        out = out[:b]
+    return act.constrain(out, "dp", None, None)
 
 
 def pad_vocab(v: int, multiple: int = 512) -> int:
@@ -241,13 +307,20 @@ def dlrm_forward(cfg: DLRMConfig, params, dense, sparse_ids, *,
     embs = sharded_embedding_lookup(params["tables"], sparse_ids,
                                     lookup=lookup)  # (B, n_sparse, D)
     z = torch.cat([bot[:, None, :], embs], dim=1)  # (B, F, D)
-    inter = torch.bmm(z, z.transpose(1, 2))  # (B, F, F)
-    f = cfg.n_features
-    iu, ju = torch.triu_indices(f, f, 1, device=z.device)  # row-major
-    pairs = inter[:, iu, ju]  # (B, F*(F-1)/2)
+    # the dot interaction, row by row (under a mesh on each device's rows)
+    pairs = act.per_device(_interact, ("dp",), z)  # (B, F*(F-1)/2)
     top_in = torch.cat([bot, pairs.to(dt)], dim=1)
     logit = mlp(top_in, params["top"]["w"], params["top"]["b"])
     return logit[:, 0]
+
+
+def _interact(z):
+    """(B, F, D) -> (B, F*(F-1)/2): the row-major upper triangle of each
+    row's Gram matrix."""
+    inter = torch.bmm(z, z.transpose(1, 2))  # (B, F, F)
+    f = z.shape[1]
+    iu, ju = torch.triu_indices(f, f, 1, device=z.device)  # row-major
+    return inter[:, iu, ju]
 
 
 def dlrm_loss(cfg: DLRMConfig, params, batch, *, lookup: str = "kernel"):
@@ -429,8 +502,12 @@ def dien_init(cfg: DIENConfig, generator: Optional[torch.Generator] = None,
 
 
 def _embed_pair(params, items, cats):
-    return torch.cat([F.embedding(items, params["item_emb"]),
-                      F.embedding(cats, params["cat_emb"])], dim=-1)
+    # under a mesh each row-sharded lookup is reduced before the concat
+    # (DTensor cannot join the pending sums of two tables)
+    return torch.cat([act.constrain(F.embedding(items, params["item_emb"]),
+                                    "dp"),
+                      act.constrain(F.embedding(cats, params["cat_emb"]),
+                                    "dp")], dim=-1)
 
 
 def dien_forward(cfg: DIENConfig, params, batch):

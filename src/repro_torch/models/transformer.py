@@ -15,8 +15,12 @@ GQA attention runs through the flash attention kernel K7.  Parameters are
 plain nested dicts with the reference's leaf keys, shapes and dtypes, so
 weights carry across and ``build_flat_plan`` lays out both packages alike.
 
-One device: the reference's activation-sharding constraints
-(``act.constrain``) have nothing to do here.  Matrix products are
+The reference's activation-sharding constraints sit at its points
+(``act.constrain``: q/k/v/o, the FFN hidden, the residual stream, the
+logits) and redistribute DTensors under ``act.activate(mesh)``; the MoE
+FFN then takes the expert-parallel ``moe_ffn_sharded``.  With no
+context each hook returns its argument after one thread-local read, and
+the one-device paths are unchanged.  Matrix products are
 ``torch.einsum`` / ``@``, as the reference leaves them to XLA.
 """
 
@@ -28,10 +32,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from ..tree import tree_leaves, tree_leaves_by_key, tree_with_leaves
+from ..ps import act_sharding as act
+from ..ps.sharding import spec_by_key
+from ..tree import tree_leaves, tree_leaves_by_key, tree_map
+from ..tree import tree_with_leaves
 from ..tree import value_and_grad
 from . import attention as attn_lib
 from .layers import (
@@ -43,7 +51,7 @@ from .layers import (
     rope_row,
     silu,
 )
-from .moe import MoEConfig, init_moe_params, moe_ffn
+from .moe import MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -270,23 +278,73 @@ def _plain_attention(cfg: LMConfig, q, k, v, scale=None):
     return attn_lib.full_attention(q, k, v, causal=True, scale=scale)
 
 
+def _heads_proj(x, w):
+    """``einsum("bsd,dhe->bshe", x, w)``.  Under a mesh, heads that do
+    not divide the model axis (GQA's kv heads) are projected on each
+    device: the input at its data shard, the (small) weight whole, the
+    output replicated over ``model``.  DTensor would shard the product's
+    flat (heads x head dim) columns over ``model`` and then cannot split
+    them into heads, in the forward or in the weight's gradient."""
+    ctx = act._current()
+    if ctx is None or not isinstance(x, DTensor) or \
+            w.shape[1] % act.mesh_size(ctx, "tp") == 0:
+        return torch.einsum("bsd,dhe->bshe", x, w)
+    mesh = ctx["mesh"]
+    rows = act.resolve(ctx, x.shape, ("dp",))
+    x_loc = act.local_in(x, mesh, rows)
+    w_loc = act.local_in(w, mesh, (Replicate(),) * mesh.ndim, tuple(
+        Partial() if p.is_shard() else Replicate() for p in rows))
+    y = torch.einsum("bsd,dhe->bshe", x_loc, w_loc)
+    return act.local_out(y, mesh, rows, tuple(x.shape[:2]) + w.shape[1:])
+
+
+def _out_proj(o, w_o):
+    """``einsum("bshe,hed->bsd", o, w_o)``.  Under a mesh it is the
+    row-parallel product on each device: o at its (data, heads) shard,
+    w_o's matching heads with d whole, the result a pending sum over
+    ``model`` that the caller's constraint reduce-scatters.  (A DTensor
+    einsum would flatten the sharded batch and heads together.)"""
+    ctx = act._current()
+    if ctx is None or not isinstance(o, DTensor):
+        return torch.einsum("bshe,hed->bsd", o, w_o)
+    mesh, names = ctx["mesh"], ctx["all"]
+    o_pl = act.resolve(ctx, o.shape, ("dp", None, "tp", None))
+    tp = names.index(ctx["tp"][0])
+    heads = o_pl[tp].is_shard()
+    w_pl = tuple(Shard(0) if i == tp and heads else Replicate()
+                 for i in range(mesh.ndim))
+    w_grad = tuple(Partial() if o_pl[i].is_shard() and i != tp else w_pl[i]
+                   for i in range(mesh.ndim))
+    y = torch.einsum("bshe,hed->bsd", act.local_in(o, mesh, o_pl),
+                     act.local_in(w_o, mesh, w_pl, w_grad))
+    y_pl = tuple(Partial() if i == tp and heads else
+                 (o_pl[i] if i != tp else Replicate())
+                 for i in range(mesh.ndim))
+    return act.local_out(y, mesh, y_pl, tuple(o.shape[:2]) + w_o.shape[2:])
+
+
 def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None,
                      attention: str = "plain"):
     """x: (B,S,d) -> (B,S,d). Training/prefill path."""
     if cfg.mla is not None:
         return _mla_attention(cfg, p, x, cos, sin, positions)
-    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
-    k = torch.einsum("bsd,dhe->bshe", x, p["w_k"])
-    v = torch.einsum("bsd,dhe->bshe", x, p["w_v"])
+    # Under a mesh the sequence-parallel input is gathered first (the SP
+    # -> TP step GSPMD inserts in the reference).
+    x = act.constrain(x, "dp", None, None)
+    q, k, v = (_heads_proj(x, p[n]) for n in ("w_q", "w_k", "w_v"))
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
+    q = act.constrain(q, "dp", None, "tp", None)  # TP over query heads
+    k = act.constrain(k, "dp", None, "tp", None)
+    v = act.constrain(v, "dp", None, "tp", None)
     if attention == "flash":
         o = attn_lib.flash_attention(q, k, v, causal=True)
     else:
         o = _plain_attention(cfg, q, k, v)
-    return torch.einsum("bshe,hed->bsd", o, p["w_o"])
+    o = act.constrain(o, "dp", None, "tp", None)
+    return _out_proj(o, p["w_o"])
 
 
 def _mla_attention(cfg: LMConfig, p, x, cos, sin, positions=None):
@@ -306,19 +364,24 @@ def _mla_attention(cfg: LMConfig, p, x, cos, sin, positions=None):
     k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
     v = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
 
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_heads,
-                                              m.qk_rope_dim)], dim=-1)
+    q_full = act.constrain(torch.cat([q_nope, q_rope], dim=-1),
+                           "dp", None, "tp", None)
+    k_full = act.constrain(torch.cat(
+        [k_nope, k_rope.expand(b, s, cfg.n_heads, m.qk_rope_dim)], dim=-1),
+        "dp", None, "tp", None)
+    v = act.constrain(v, "dp", None, "tp", None)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     o = _plain_attention(cfg, q_full, k_full, v, scale)
-    return torch.einsum("bshe,hed->bsd", o, p["w_o"])
+    return _out_proj(o, p["w_o"])
 
 
 def _ffn_block(cfg: LMConfig, p, x):
     """Dense or MoE FFN on (B,S,d). Returns (out, aux_loss)."""
     if "ffn" in p:
         f = p["ffn"]
+        x = act.constrain(x, "dp", None, None)  # SP -> TP, as attention's
         h = silu(x @ f["w_gate"]) * (x @ f["w_up"])
+        h = act.constrain(h, "dp", None, "tp")  # TP over FFN hidden
         return h @ f["w_down"], torch.zeros((), dtype=torch.float32,
                                             device=x.device)
     b, s, d = x.shape
@@ -326,6 +389,12 @@ def _ffn_block(cfg: LMConfig, p, x):
     if cfg.moe_capacity_factor_override is not None:
         cfg_moe = dataclasses.replace(
             cfg_moe, capacity_factor=cfg.moe_capacity_factor_override)
+    ctx = act._current()
+    if (ctx is not None and b % act.mesh_size(ctx, "dp") == 0
+            and cfg_moe.n_experts % act.mesh_size(ctx, "tp") == 0):
+        # SP-preserving all-to-all expert parallelism: tokens leave their
+        # (dp, tp) shard only through the EP exchange.
+        return moe_ffn_sharded(x, p["moe"], cfg_moe)
     y, aux = moe_ffn(x.reshape(b * s, d), p["moe"], cfg_moe,
                      n_groups=cfg.moe_groups)
     return y.reshape(b, s, d), aux
@@ -339,19 +408,21 @@ def _layer_fn(cfg: LMConfig, p, x, cos, sin, positions=None,
         a = _attention_block(cfg, p["attn"], h, cos, sin, positions,
                              attention)
         f, aux = _ffn_block(cfg, p, h)
-        return x + (a + f), aux
+        return x + act.constrain(a + f, "dp", "tp", None), aux
     a = _attention_block(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x), cos,
                          sin, positions, attention)
-    x = x + a
+    x = x + act.constrain(a, "dp", "tp", None)
     f, aux = _ffn_block(cfg, p, _apply_norm(cfg, p["ln2"], x))
-    return x + f, aux
+    return x + act.constrain(f, "dp", "tp", None), aux
 
 
 def _unstack(stacked) -> list:
     """The stacked ``(L, ...)`` layer tree as L per-layer trees.  One
     ``unbind`` per leaf, so the backward pass stacks the L gradients once
-    instead of adding L zero-padded copies."""
-    parts = {k: t.unbind(0) for k, t in tree_leaves_by_key(stacked).items()}
+    instead of adding L zero-padded copies.  Under a mesh a leaf sharded
+    along L is gathered first (``act.whole_dim``)."""
+    parts = {k: act.whole_dim(t, 0).unbind(0)
+             for k, t in tree_leaves_by_key(stacked).items()}
     n = len(next(iter(parts.values())))
     return [tree_with_leaves(stacked, {k: v[i] for k, v in parts.items()})
             for i in range(n)]
@@ -369,17 +440,20 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
     # tokens in a fixed order; an indexing gather's backward accumulates
     # them in parallel, in an order that changes from run to run.
     x = F.embedding(tokens.long(), params["embed"])
+    x = act.constrain(x, "dp", "tp", None)  # sequence-parallel residual
     cos, sin = rope_frequencies(cfg.rope_dim, tokens.shape[1],
                                 cfg.rope_theta, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.first_k_dense):
         x, aux = _layer_fn(cfg, params[f"dense_layer_{i}"], x, cos, sin,
                            attention=attention)
+        x = act.constrain(x, "dp", "tp", None)
         aux_total = aux_total + aux
     if "layers" in params:
         remat = (cfg.remat and torch.is_grad_enabled()
                  and not torch._C._are_functorch_transforms_active())
         for layer_p in _unstack(params["layers"]):
+            x = act.constrain(x, "dp", "tp", None)
             if remat:
                 x, aux = checkpoint(_layer_fn, cfg, layer_p, x, cos, sin,
                                     None, attention, use_reentrant=False)
@@ -410,32 +484,44 @@ def make_train_step(cfg: LMConfig, optimizer, n_microbatches: int = 1,
     state = {'params', 'opt'}; batch tokens (B,S).  With n_microbatches >
     1 the gradients accumulate in ``grad_accum_dtype`` over the
     microbatches (B must divide evenly) and the optimizer runs once.
-    ``grad_shardings`` pins gradient layouts on a mesh in the reference;
-    on one device there is nothing to pin and it must be None.
+    ``grad_shardings`` (a params-shaped tree of DTensor placement tuples,
+    or None) pins the gradients and the accumulator of DTensor params to
+    those placements: needed where parameters replicate along an axis
+    (EP expert weights) but gradients must stay sharded (ZeRO-1).
     """
-    if grad_shardings is not None:
-        raise ValueError("grad_shardings: the port runs on one device")
     grad_fn = value_and_grad(lambda p, b: loss_fn(cfg, p, b))
+    pins = None if grad_shardings is None else spec_by_key(grad_shardings)
+
+    def pin(grads):
+        if pins is None:
+            return grads
+        return tree_with_leaves(grads, {
+            k: (g.redistribute(g.device_mesh, pins[k])
+                if isinstance(g, DTensor) and g.placements != pins[k]
+                else g)
+            for k, g in tree_leaves_by_key(grads).items()})
 
     def train_step(state, batch):
         params = state["params"]
         if n_microbatches == 1:
             loss, grads = grad_fn(params, batch)
+            grads = pin(grads)
         else:
             b = batch["tokens"].shape[0]
             mb = b // n_microbatches
-            toks = batch["tokens"].reshape(n_microbatches, mb, -1)
-            labs = batch["labels"].reshape(n_microbatches, mb, -1)
-            acc = {k: torch.zeros(p.shape, dtype=grad_accum_dtype,
-                                  device=p.device)
-                   for k, p in tree_leaves_by_key(params).items()}
+            acc = tree_leaves_by_key(pin(tree_map(
+                lambda p: torch.zeros_like(p, dtype=grad_accum_dtype),
+                params)))
             loss = torch.zeros((), dtype=torch.float32,
-                               device=toks.device)
+                               device=batch["tokens"].device)
             for i in range(n_microbatches):
-                l, g = grad_fn(params, {"tokens": toks[i],
-                                        "labels": labs[i]})
+                # rows i*mb onwards (a slice, not a reshape: a DTensor
+                # cannot unflatten a batch sharded wider than the count)
+                l, g = grad_fn(params, {
+                    k: act.constrain(batch[k][i * mb:(i + 1) * mb], "dp",
+                                     None) for k in ("tokens", "labels")})
                 loss = loss + l
-                for k, gi in tree_leaves_by_key(g).items():
+                for k, gi in tree_leaves_by_key(pin(g)).items():
                     acc[k] += gi.to(grad_accum_dtype)
                 del g
             loss = loss / n_microbatches
@@ -448,6 +534,12 @@ def make_train_step(cfg: LMConfig, optimizer, n_microbatches: int = 1,
 
 
 # ================================================================= serving
+def _inference():
+    """``torch.inference_mode()``; ``no_grad()`` under a mesh context,
+    since DTensor cannot run on inference tensors."""
+    return torch.no_grad() if act.enabled() else torch.inference_mode()
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
                   device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's cache tree, zeroed, in the model's dtype: ``{"scan":
@@ -482,9 +574,7 @@ def _decode_attn_gqa(cfg, p, x, cache_len: int, cos, sin, cache_k, cache_v):
     ``cache_len``.  Returns the attention output (B,1,d).  cos/sin are
     single-row tables for the current position (index 0)."""
     pos = torch.zeros((x.shape[0], 1), dtype=torch.long, device=x.device)
-    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
-    k = torch.einsum("bsd,dhe->bshe", x, p["w_k"])
-    v = torch.einsum("bsd,dhe->bshe", x, p["w_v"])
+    q, k, v = (_heads_proj(x, p[n]) for n in ("w_q", "w_k", "w_v"))
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = apply_rope(q, cos, sin, pos)
@@ -492,7 +582,7 @@ def _decode_attn_gqa(cfg, p, x, cache_len: int, cos, sin, cache_k, cache_v):
     cache_k[:, cache_len:cache_len + 1] = k
     cache_v[:, cache_len:cache_len + 1] = v
     o = attn_lib.decode_attention(q, cache_k, cache_v, cache_len + 1)
-    return torch.einsum("bshe,hed->bsd", o, p["w_o"])
+    return _out_proj(o, p["w_o"])
 
 
 def _decode_attn_mla(cfg, p, x, cache_len: int, cos, sin, cache_ckv,
@@ -541,8 +631,10 @@ def make_serve_step(cfg: LMConfig):
         length = int(cache["length"])
         if length >= cache["scan"][names[0]].shape[2]:
             raise ValueError(f"KV cache full ({length} positions)")
-        with torch.inference_mode():
+        with _inference():
             x = F.embedding(tokens.long(), params["embed"])  # (B,1,d)
+            # reduce a vocab-sharded lookup at once, as forward_hidden does
+            x = act.constrain(x, "dp", "tp", None)
             cos, sin = rope_row(length, cfg.rope_dim, cfg.rope_theta,
                                 device=x.device)
 
@@ -588,7 +680,7 @@ def make_prefill(cfg: LMConfig, attention: Optional[str] = None):
     _check_attention(cfg, attention)
 
     def prefill(params, tokens):
-        with torch.inference_mode():
+        with _inference():
             hidden, _ = forward_hidden(cfg, params, tokens,
                                        attention=attention)
             logits = (hidden[:, -1] @ _unembed(cfg, params)).float()

@@ -30,7 +30,10 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.core.cyclic", "repro_torch.core.ip_model",
               "repro_torch.core.profiler", "repro_torch.models.gnn",
               "repro_torch.data.graph_sampler", "repro_torch.optim.sgd",
-              "repro_torch.configs.gin_tu"):
+              "repro_torch.configs.gin_tu", "repro_torch.arch",
+              "repro_torch.launch.mesh", "repro_torch.launch.cells",
+              "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
+              "repro_torch.ps.sharding", "repro_torch.ps.act_sharding"):
         assert m in mods
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -193,11 +193,29 @@ def test_one_row_bags_equal_takes_bit_for_bit():
 
 
 def test_mesh_lookup_raises_naming_its_item(monkeypatch):
+    """The lookup takes its mesh branch from the activation-sharding
+    context, not from the process group: a world of 4 with no context
+    is the one-device lookup; under a context whose mesh does not span
+    the default group it raises, naming what it needs."""
+    from repro_torch.ps import act_sharding
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trec.sharded_embedding_lookup([torch.zeros(4, 2)],
-                                      torch.zeros((3, 1), dtype=torch.int32))
+    table = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    ids = torch.tensor([[3], [0], [2]], dtype=torch.int32)
+    got = trec.sharded_embedding_lookup([table], ids)
+    assert torch.equal(got, table[ids.long()])
+
+    class TwoRankMesh:
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 2}
+
+        def size(self):
+            return 2
+
+    with act_sharding.activate(TwoRankMesh()):
+        with pytest.raises(ValueError, match="span the default process"):
+            trec.sharded_embedding_lookup([table], ids)
 
 
 # ------------------------------------------------------------------ models
