@@ -238,13 +238,21 @@ mesh, an NCCL group on the card:
      one step with DTensor params (``LoweredCell.lower`` under
      ``op_cost.OpCost``) against the same step on plain tensors, the
      loss and every updated leaf bit for bit, op_cost's flops printed
-     beside the model flops; w4, ``python -m repro_torch.launch.dryrun``
-     on the 16 x 16 production mesh (a fake process group, meta
-     tensors) for qwen1.5-0.5b train_4k, dlrm-rm2 train_batch and gin-tu
-     ogb_products, three child processes started before w1 and run
-     beside it: each cell's outcome (ok, or the operator that failed),
-     dominant roofline term and fraction, analytic under the H100 SXM's
-     published rates, and wall seconds.
+     beside the model flops; w5, one forward and backward of gin-tu's
+     ogb_products step (61.9 M edges, published widths) through GIN's
+     mesh branch (``index_add`` in a per-device region), its arguments
+     placed by ``build_cell``, held against the one-device plan's pass
+     (loss within W_GNN_LOSS_RTOL, each gradient leaf within
+     W_GNN_GRAD_TOL of its largest magnitude), both timed, on phase u's
+     host graph; w4, ``python -m
+     repro_torch.launch.dryrun`` on the production meshes (fake process
+     groups, meta tensors): qwen1.5-0.5b train_4k, dlrm-rm2
+     train_batch, gin-tu ogb_products and sasrec train_batch on the
+     16 x 16 mesh, dien train_batch on the 2 x 16 x 16 one
+     (``--multi-pod``), five child processes started before w1 and run
+     beside w1-w3 and w5: each cell's dominant roofline term and
+     fraction, analytic under the H100 SXM's published rates, and wall
+     seconds; a cell refused (``ok: false``) fails the phase.
 
 Every kernel is built from the sources in the checkout, run at the main
 path's shapes and held against its plain PyTorch version; every replan
@@ -288,7 +296,7 @@ result and exits 2.  ``scripts/torch_lm_rehearsal.py`` rehearses phases
 m, n and p on the CPU through ``lm_family_phases``, as ``main`` runs them;
 ``scripts/torch_gnn_rehearsal.py`` phases u and v through ``gnn_phase``
 and ``examples_phase``; ``scripts/torch_mesh_rehearsal.py`` phase w
-(but w4) through ``mesh_phase``.
+(but w4; w5 on the cut graph) through ``mesh_phase``.
 """
 
 from __future__ import annotations
@@ -3903,12 +3911,13 @@ def gnn_molecule_phase(device, wrappers):
     return counts
 
 
-def gnn_phase(device, wrappers, full):
+def gnn_phase(device, wrappers, full, graphs=None):
     """Phase u: gin-tu at all four ``GRAPH_SHAPES`` (published node, edge
     and feature counts unless rehearsing).  The two large graphs are
     built on the host in two threads (numpy releases the GIL in its
-    long calls) while the small shapes train.  Returns the launch
-    counts."""
+    long calls) while the small shapes train; ogb_products' host graph
+    is kept in ``graphs`` (a dict) where one is given, for phase w5.
+    Returns the launch counts."""
     from concurrent.futures import ThreadPoolExecutor
 
     t_start = time.perf_counter()
@@ -3920,6 +3929,8 @@ def gnn_phase(device, wrappers, full):
             gnn_molecule_phase(device, wrappers),
             gnn_products_phase(device, wrappers, products.result()),
             gnn_minibatch_phase(device, wrappers, reddit.result()))
+        if graphs is not None:
+            graphs["ogb_products"] = products.result()
     _require(counts, ("agg_adam_dense",), "u")
     print(f"phase u (gin-tu, four graph shapes): counters={counts} seconds="
           f"{time.perf_counter() - t_start:.1f}", flush=True)
@@ -4021,8 +4032,13 @@ def examples_phase(device, wrappers, full):
 W_MOE_TOKENS = (8, 512)  # granite-moe's MoE layer: batch x sequence
 W_MOE_RMS = 1e-5  # card vs CPU, relative RMS of the layer's output
 W_TRAIN_BATCH = 8  # qwen1.5-0.5b train_4k: its batch of 256 cut to 8
-W_DRYRUN = (("qwen1.5-0.5b", "train_4k"), ("dlrm-rm2", "train_batch"),
-            ("gin-tu", "ogb_products"))
+W_DRYRUN = (("qwen1.5-0.5b", "train_4k", "pod256"),
+            ("dlrm-rm2", "train_batch", "pod256"),
+            ("gin-tu", "ogb_products", "pod256"),
+            ("sasrec", "train_batch", "pod256"),
+            ("dien", "train_batch", "pod512"))
+W_GNN_LOSS_RTOL = 1e-4  # w5: the mesh branch's loss vs the one-device one
+W_GNN_GRAD_TOL = 1e-3  # w5: each gradient leaf, x its largest magnitude
 W_DIR = ROOT / "build" / "phase_w"  # git-ignored; removed after
 
 
@@ -4049,50 +4065,56 @@ class PositionRecorder:
 
 def w_dryrun_start(out_dir: Path):
     """w4's children, one ``repro_torch.launch.dryrun`` process a cell on
-    the 16 x 16 production mesh (fake process group, meta tensors), all
-    started at once; they run beside w1-w3."""
+    its production mesh (16 x 16, or 2 x 16 x 16 with ``--multi-pod``;
+    fake process groups, meta tensors), all started at once; they run
+    beside w1-w3 and w5."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
-    for arch, shape in W_DRYRUN:
-        log = open(out_dir / f"{arch}__{shape}.log", "w")
+    for arch, shape, mesh in W_DRYRUN:
+        log = open(out_dir / f"{mesh}_{arch}__{shape}.log", "w")
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--out", str(out_dir)], cwd=ROOT,
+             arch, "--shape", shape, "--out", str(out_dir)]
+            + (["--multi-pod"] if mesh == "pod512" else []), cwd=ROOT,
             env=env, stdout=log, stderr=subprocess.STDOUT)
-        procs.append([arch, shape, proc, log, time.perf_counter(), None])
+        procs.append([(arch, shape, mesh), proc, log, time.perf_counter(),
+                      None])
     return procs
 
 
 def w_dryrun_finish(procs, out_dir: Path, timeout_s: float = 600.0):
     """Wait for w4's children; print each cell's outcome (analytic, under
-    the H100 SXM's published rates) and its wall seconds."""
+    the H100 SXM's published rates) and its wall seconds.  Raises if a
+    cell wrote no record or was refused (``ok: false``)."""
     deadline = time.perf_counter() + timeout_s
     try:
-        while any(p[5] is None for p in procs):
+        while any(p[4] is None for p in procs):
             for p in procs:
-                if p[5] is None and p[2].poll() is not None:
-                    p[5] = time.perf_counter() - p[4]
+                if p[4] is None and p[1].poll() is not None:
+                    p[4] = time.perf_counter() - p[3]
             if time.perf_counter() > deadline:
                 raise AssertionError("phase w4: a dry-run child did not end "
                                      f"within {timeout_s:.0f} s")
             time.sleep(0.2)
     finally:
-        for arch, shape, proc, log, _, _ in procs:
+        for _, proc, log, _, _ in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
-    for arch, shape, proc, _, _, wall in procs:
-        path = out_dir / "pod256" / f"{arch}__{shape}.json"
+    refused = []
+    for (arch, shape, mesh), proc, _, _, wall in procs:
+        path = out_dir / mesh / f"{arch}__{shape}.json"
         if not path.exists():
-            tail = (out_dir / f"{arch}__{shape}.log").read_text()[-1500:]
+            tail = (out_dir / f"{mesh}_{arch}__{shape}.log").read_text()[
+                -1500:]
             raise AssertionError(f"phase w4: the dry-run of {arch} {shape} "
-                                 f"wrote no record (exit {proc.returncode})"
-                                 f":\n{tail}")
+                                 f"on {mesh} wrote no record (exit "
+                                 f"{proc.returncode}):\n{tail}")
         rec = json.loads(path.read_text())
         if rec["ok"]:
             r = rec["roofline"]
-            print(f"phase w4 ({arch} {shape}, pod256, analytic under H100 "
+            print(f"phase w4 ({arch} {shape}, {mesh}, analytic under H100 "
                   f"SXM constants): ok=True dominant={r['dominant']} "
                   f"roofline_fraction={rec['roofline_fraction']:.6f} "
                   f"t_compute_s={r['t_compute_s']:.4f} t_memory_s="
@@ -4103,8 +4125,12 @@ def w_dryrun_finish(procs, out_dir: Path, timeout_s: float = 600.0):
                   f"collectives={rec['collectives']['counts']} "
                   f"run_s={rec['lower_s']} wall_s={wall:.1f}", flush=True)
         else:
-            print(f"phase w4 ({arch} {shape}, pod256): ok=False error="
-                  f"{rec['error'][:300]!r} wall_s={wall:.1f}", flush=True)
+            print(f"phase w4 ({arch} {shape}, {mesh}): ok=False error="
+                  f"{rec['error'][:300]!r} wall_s={wall:.1f}\n"
+                  f"{rec['traceback']}", flush=True)
+            refused.append(f"{arch} {shape} on {mesh}")
+    if refused:
+        raise AssertionError(f"phase w4: the dry-run refused {refused}")
 
 
 def w1_lookup(device, wrappers, mesh, full):
@@ -4203,7 +4229,10 @@ def w2_cpu(out_path, full):
 
 
 def w2_cpu_start(full):
-    """Start w2's CPU child; it runs beside w1."""
+    """Start w2's CPU child in a fresh W_DIR; it needs no card, so
+    ``main`` starts it before phase v and it runs beside v and w1."""
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    W_DIR.mkdir(parents=True)
     return subprocess.Popen(
         [sys.executable, "-c",
          "import sys, chip_smoke; chip_smoke.w2_cpu(*sys.argv[1:])",
@@ -4361,32 +4390,129 @@ def w3_train_cell(device, mesh, full):
     free_device()
 
 
-def mesh_phase(device, wrappers, full):
+def _leaf_errors(got, want):
+    """Per leaf (by key): the largest difference of ``got`` from ``want``
+    over ``want``'s largest magnitude."""
+    out = {}
+    for k, w in want.items():
+        g = _whole(got[k]).float()
+        out[k] = float((g - w.float()).abs().max()
+                       / w.float().abs().max().clamp(min=1e-30))
+    return out
+
+
+def w5_gin_mesh(device, wrappers, mesh, graph):
+    """w5: one forward and backward of gin-tu's ogb_products step (2.45 M
+    nodes, 61.9 M edges, 100 features at its published widths; cut by
+    GNN_CUT when rehearsing) through the mesh branch (``MeshAggregation``,
+    ``index_add`` in a per-device region) on the host mesh, its arguments
+    placed by ``build_cell``'s ``LoweredCell``, held against the same
+    pass on plain tensors through the one-device plan: the loss within
+    W_GNN_LOSS_RTOL, every gradient leaf within W_GNN_GRAD_TOL of its
+    largest magnitude (``index_add`` sums in its own order); both timed.
+    No kernel runs in either."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import gin_tu
+    from repro_torch.launch import cells
+    from repro_torch.models import gnn
+    from repro_torch.optim import adam
+    from repro_torch.ps import act_sharding as act
+    from repro_torch.tree import tree_leaves_by_key, value_and_grad
+
+    t_start = time.perf_counter()
+    g, gen_s = graph
+    cfg = gin_tu.model_for_shape("ogb_products")
+    cell = cells.build_cell("gin-tu", "ogb_products", mesh)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in g.items()
+             if k in ("feats", "edge_src", "edge_dst", "labels",
+                      "label_mask")}
+    n, e = g["feats"].shape[0], g["edge_src"].shape[0]
+    batch["edge_mask"] = torch.ones(e, dtype=torch.bool, device=device)
+    del g
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = gnn.init_params(cfg, gen, device)
+    state = {"params": params, "opt": adam(GNN_LR).init(params)}
+    grad = value_and_grad(lambda p, b: gnn.loss_fn(cfg, p, b))
+    free_device()
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    placed_state, placed_batch = cell.place((state, batch))
+
+    def on_mesh():
+        with act.activate(mesh), implicit_replication():
+            return grad(placed_state["params"], placed_batch)
+
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    timed(on_mesh)
+    free_device()
+    (l_mesh, g_mesh), mesh_ms = timed(on_mesh)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    free_device()
+    plan_batch = gnn.with_aggregation(cfg, batch)
+    timed(lambda: grad(params, plan_batch))
+    (l_one, g_one), one_ms = timed(lambda: grad(params, plan_batch))
+    del plan_batch
+    counts = read_counters(wrappers)
+    if any(counts.values()):
+        raise AssertionError(f"phase w5 launched a kernel: {counts}")
+    loss_rel = abs(float(_whole(l_mesh)) - float(l_one)) / abs(float(l_one))
+    errs = _leaf_errors(tree_leaves_by_key(g_mesh), tree_leaves_by_key(g_one))
+    worst = max(errs, key=errs.get)
+    print(f"phase w5 (gin-tu ogb_products, {cfg.name} x{cfg.n_layers} "
+          f"d_hidden={cfg.d_hidden} d_feat={cfg.d_feat}, nodes={n} "
+          f"edges={e}, one forward+backward through build_cell's placement "
+          f"on the host mesh): mesh branch (index_add per device) vs the "
+          f"one-device plan: loss {float(l_one):.6f} rel_diff={loss_rel:.3e} "
+          f"(bound {W_GNN_LOSS_RTOL:g}) worst_grad_leaf={worst} "
+          f"rel_err={errs[worst]:.3e} (bound {W_GNN_GRAD_TOL:g}) mesh_ms="
+          f"{mesh_ms:.2f} one_device_ms={one_ms:.2f} memory_allocated_gb at "
+          f"the start {base:.2f}, max in the mesh passes {peak:.2f}; host "
+          f"graph_s={gen_s:.2f} (phase u's) counters={counts} seconds="
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    if not loss_rel <= W_GNN_LOSS_RTOL or not errs[worst] <= W_GNN_GRAD_TOL:
+        raise AssertionError(f"phase w5: the mesh branch differs from the "
+                             f"one-device step: loss {loss_rel:.3e}, "
+                             f"{worst} {errs[worst]:.3e}")
+    del batch, placed_batch, placed_state, state, params, g_one, g_mesh
+    free_device()
+
+
+def mesh_phase(device, wrappers, full, graph, child):
     """Phase w: the mesh layer on a one-rank host mesh (NCCL on the card).
-    w4's dry-run children start first and run beside w1-w3.  Returns the
+    w4's dry-run children start first and run beside w1-w3 and w5.  w2
+    reads ``child`` (``w2_cpu_start``'s), w5 takes ``graph`` (phase u's
+    ogb_products host graph, ``gnn_graph``'s result).  Returns the
     counters of w1's mesh lookup (the only kernel launches of the
     phase's main path)."""
     from repro_torch.launch.mesh import close_mesh, make_host_mesh
 
     t0 = time.perf_counter()
-    shutil.rmtree(W_DIR, ignore_errors=True)
-    W_DIR.mkdir(parents=True)
     procs = w_dryrun_start(W_DIR) if full else []
-    child = w2_cpu_start(full)
     try:
         mesh = make_host_mesh(device)
         counts = w1_lookup(device, wrappers, mesh, full)
         w2_moe(device, mesh, full, child)
         w3_train_cell(device, mesh, full)
+        w5_gin_mesh(device, wrappers, mesh, graph)
         close_mesh()
         if full:
             w_dryrun_finish(procs, W_DIR)
     finally:
         for p in procs:
-            if p[2].poll() is None:
-                p[2].kill()
-                p[2].wait()
-            p[3].close()
+            if p[1].poll() is None:
+                p[1].kill()
+                p[1].wait()
+            p[2].close()
         if child.poll() is None:
             child.kill()
             child.wait()
@@ -4649,14 +4775,21 @@ def main() -> int:
         add_totals(counts)
 
     # ---- phase u: the GNN at its four graph shapes; phase v: the examples
-    counts_u = gnn_phase(device, wrappers, full)
+    graphs = {}
+    counts_u = gnn_phase(device, wrappers, full, graphs)
     add_totals(counts_u)
-    counts_v = examples_phase(device, wrappers, full)
+    w2_child = w2_cpu_start(full)  # phase w2's CPU run, beside v
+    try:
+        counts_v = examples_phase(device, wrappers, full)
+    except BaseException:
+        w2_child.kill()
+        raise
     _require(counts_v, ("agg_adam_multijob_fused", "agg_adam_dense"), "v")
     add_totals(counts_v)
 
     # ---- phase w: the mesh layer on a one-rank host mesh; the dry-run
-    counts_w = mesh_phase(device, wrappers, full)
+    counts_w = mesh_phase(device, wrappers, full, graphs.pop("ogb_products"),
+                          w2_child)
     _require(counts_w, ("embed_bag",), "w")
     add_totals(counts_w)
 

@@ -5,8 +5,10 @@ one-rank host mesh (gloo here, NCCL on the card) through
 through the row-sharded lookup's mesh branch against the one-device
 lookup; w2, granite-moe's smoke MoE layer through ``moe_ffn_sharded``
 against the same run in a child process; w3, Qwen's smoke training cell
-with DTensor params against plain tensors.  w4 (the dry-run children on
-the production mesh) runs on the card only; run it here with
+with DTensor params against plain tensors; w5, gin-tu's ogb_products
+pass through GIN's mesh branch against the one-device plan, on the graph
+cut by ``chip_smoke.GNN_CUT`` (widths kept).  w4 (the dry-run children
+on the production meshes) runs on the card only; run it here with
 ``PYTHONPATH=src python -m repro_torch.launch.dryrun``.
 
 K6 runs its plain version, wrapped in a stand-in that counts its calls
@@ -44,7 +46,9 @@ def main() -> int:
     torch.cuda.empty_cache = lambda *a, **k: None
     chip_smoke.sync = lambda device: None
     chip_smoke.time_ms = host_ms
-    counts = chip_smoke.mesh_phase(device, wrappers, False)
+    counts = chip_smoke.mesh_phase(
+        device, wrappers, False, chip_smoke.gnn_graph("ogb_products", False),
+        chip_smoke.w2_cpu_start(False))
     print(f"phase w on the CPU: counters={counts} "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return 0

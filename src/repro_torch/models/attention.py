@@ -117,8 +117,9 @@ def decode_attention(q, k_cache, v_cache, cache_len=None,
     smax, hk = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
     g = hq // hk
-    if g > 1:  # under a mesh: q's heads whole, to group them by kv head
-        q = act.whole_dim(q, 2)
+    # under a mesh q's heads whole, to group them by kv head, and so that
+    # the score products flatten no split dim but the batch
+    q = act.whole_dim(q, 2)
     qg = (q * scale).reshape(b, hk, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
     if cache_len is not None:

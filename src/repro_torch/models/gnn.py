@@ -41,6 +41,19 @@ The graph readout is the same :class:`Aggregation` with ``src`` the node
 ids and ``dst`` the graph ids.  :func:`with_aggregation` builds a
 batch's plans once, so a full-graph step that reuses its batch sorts the
 edges once in all; without them each forward builds its own.
+
+Under an activation-sharding context (``ps.act_sharding``) with DTensor
+inputs, the mesh dry-run's cells, a plan cannot be built: its sorts and
+its dropping of masked edges need values, which ``meta`` tensors lack.
+There the aggregation is the reference's static-shape form in a
+per-device region over each rank's edge shard (:class:`MeshAggregation`:
+``h[src]`` with ``h`` whole, ``index_add`` into zeros, a masked edge
+into a row that is cut off, the pending sum over the edge-splitting
+ranks reduced to ``h``'s layout), and the readout the same over each
+rank's node rows (:func:`mesh_readout`).  Autograd gives their
+backward.  ``index_add`` sums in an order of its own on CUDA, so on the
+card this branch matches the one-device plan at float tolerance, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -50,8 +63,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..device import resolve_device
+from ..ps import act_sharding as act
 from ..tree import (array_to_tensor, tree_leaves_by_key, tree_with_leaves,
                     value_and_grad)
 
@@ -225,9 +240,103 @@ def readout(graph_ids, n_graphs: int) -> Aggregation:
     return Aggregation(nodes, graph_ids, n_graphs, n_in=graph_ids.shape[0])
 
 
+# ------------------------------------------------------ the mesh branch
+def _on_mesh(x) -> bool:
+    return act._current() is not None and isinstance(x, DTensor)
+
+
+class _GatherAdd(torch.autograd.Function):
+    """``zeros(n, d).index_add(0, dst, h.index_select(0, src))`` on plain
+    tensors; backward, the transposed sum ``zeros_like(h).index_add(0,
+    src, grad.index_select(0, dst))``.  Only the edge ids are saved, not
+    the (E, d) messages that ``index_add``'s own backward would keep."""
+
+    @staticmethod
+    def forward(ctx, h, src, dst, n: int):
+        ctx.save_for_backward(src, dst)
+        ctx.n_in = h.shape[0]
+        return h.new_zeros((n, h.shape[1])).index_add_(
+            0, dst, h.index_select(0, src))
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        src, dst = ctx.saved_tensors
+        grad_h = grad.new_zeros((ctx.n_in, grad.shape[1])).index_add_(
+            0, src, grad.index_select(0, dst))
+        return grad_h, None, None, None
+
+
+class MeshAggregation:
+    """:class:`Aggregation`'s counterpart under an activation-sharding
+    context: the reference's ``segment_sum(h[src] * mask, dst, n_out)``
+    in a per-device region.  Each rank takes its shard of the edges (over
+    every mesh axis where their count divides, else all of them), gathers
+    their sources from ``h`` made whole and ``index_add``s them into an
+    ``(n_out + 1, d)`` zero tensor, a masked edge into the extra row,
+    which is cut off (:class:`_GatherAdd`: no (E, d) tensor outlives the
+    forward or the backward).  That is a sum pending over the ranks that
+    split the edges, which leaves the region reduced to ``h``'s own layout (a
+    reduce-scatter where ``h``'s rows are sharded, an all-reduce where
+    they are replicated)."""
+
+    def __init__(self, src, dst, n_out: int, mask=None):
+        self.src, self.dst, self.mask, self.n_out = src, dst, mask, n_out
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        ctx = act._current()
+        mesh = ctx["mesh"]
+        e_pl = act.resolve(ctx, self.src.shape, ("all",))
+        split = tuple(Partial() if p.is_shard() else Replicate()
+                      for p in e_pl)
+        h_loc = act.local_in(h, mesh, (Replicate(),) * mesh.ndim, split)
+        src = act.local_in(self.src, mesh, e_pl)
+        dst = act.local_in(self.dst, mesh, e_pl)
+        if self.mask is not None:
+            dst = torch.where(act.local_in(self.mask, mesh, e_pl), dst,
+                              self.n_out)
+        out = _GatherAdd.apply(h_loc, src, dst, self.n_out + 1)[:self.n_out]
+        agg = act.local_out(out, mesh, split, (self.n_out, h.shape[1]))
+        return agg.redistribute(mesh, h.placements)
+
+
+def mesh_readout(h, graph_ids, n_graphs: int):
+    """The sum readout under an activation-sharding context: each rank
+    ``index_add``s its rows of ``h`` into a ``(n_graphs, d)`` zero tensor
+    by their graph ids (taken at ``h``'s row layout), and the sum pending
+    over the ranks that split the rows is reduce-scattered to the graphs
+    over the data axes (the labels' layout)."""
+    ctx = act._current()
+    mesh = ctx["mesh"]
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in h.placements)
+    h_loc = act.local_in(h, mesh, rows)
+    ids = act.local_in(graph_ids, mesh, rows)
+    out = h_loc.new_zeros((n_graphs, h_loc.shape[1])).index_add(0, ids,
+                                                                 h_loc)
+    pooled = act.local_out(out, mesh, tuple(
+        Partial() if p.is_shard() else Replicate() for p in rows),
+        (n_graphs, h.shape[1]))
+    return pooled.redistribute(mesh, act.resolve(ctx, pooled.shape,
+                                                 ("dp",)))
+
+
+def _aggregation(edge_src, edge_dst, n_nodes: int, edge_mask, h):
+    """The aggregation of one forward: a :class:`MeshAggregation` under a
+    context with DTensor ``h``, else an :class:`Aggregation` plan."""
+    if _on_mesh(h):
+        return MeshAggregation(edge_src, edge_dst, n_nodes, mask=edge_mask)
+    return Aggregation(edge_src, edge_dst, n_nodes, mask=edge_mask)
+
+
 def with_aggregation(cfg: GINConfig, batch: Dict) -> Dict:
     """``batch`` with its plans (``"agg"``, and ``"readout"`` for the
-    graph task) built once on the batch's device."""
+    graph task) built once on the batch's device; as it is under an
+    activation-sharding context with DTensor feats, whose forward takes
+    the mesh branch."""
+    if _on_mesh(batch["feats"]):
+        return batch
     out = dict(batch)
     out["agg"] = Aggregation(batch["edge_src"], batch["edge_dst"],
                              batch["feats"].shape[0],
@@ -243,7 +352,7 @@ def gin_layer(p, h, edge_src, edge_dst, n_nodes: int, edge_mask=None,
               agg: Optional[Aggregation] = None):
     """h' = MLP((1 + eps) * h + sum_{j in N(i)} h_j)."""
     if agg is None:
-        agg = Aggregation(edge_src, edge_dst, n_nodes, mask=edge_mask)
+        agg = _aggregation(edge_src, edge_dst, n_nodes, edge_mask, h)
     z = (1.0 + p["eps"]).to(h.dtype) * h + agg(h)
     z = torch.relu(z @ p["w1"] + p["b1"])
     return torch.relu(z @ p["w2"] + p["b2"])
@@ -255,7 +364,7 @@ def forward(cfg: GINConfig, params, feats, edge_src, edge_dst,
     d).  One plan serves every layer."""
     n = feats.shape[0]
     if agg is None:
-        agg = Aggregation(edge_src, edge_dst, n, mask=edge_mask)
+        agg = _aggregation(edge_src, edge_dst, n, edge_mask, feats)
     h = feats.to(cfg.torch_dtype)
     for p in params["layers"]:
         h = gin_layer(p, h, edge_src, edge_dst, n, edge_mask, agg)
@@ -274,7 +383,10 @@ def graph_logits(cfg: GINConfig, params, feats, edge_src, edge_dst,
                  pool: Optional[Aggregation] = None):
     """Sum-readout per graph then classify (batched small molecules)."""
     h = forward(cfg, params, feats, edge_src, edge_dst, edge_mask, agg)
-    pooled = (readout(graph_ids, n_graphs) if pool is None else pool)(h)
+    if pool is None and _on_mesh(h):
+        pooled = mesh_readout(h, graph_ids, n_graphs)
+    else:
+        pooled = (readout(graph_ids, n_graphs) if pool is None else pool)(h)
     return pooled @ params["head_w"] + params["head_b"]
 
 

@@ -16,8 +16,11 @@ reference leaves them to XLA; nothing here is a kernel of its own.
 Under an activation-sharding context (``ps.act_sharding``) the hooks
 below redistribute DTensors as the reference's ``act.constrain`` points
 do, and ``moe_ffn_sharded`` is the reference's expert-parallel path: a
-per-device region with an all-to-all over the ``model`` axis.  With no
-context every hook returns its argument and nothing changes.
+per-device region with an all-to-all over the ``model`` axis.
+``moe_ffn_grouped_sharded`` is ``moe_ffn``'s grouped semantics in a
+per-device region, for sequence-parallel tokens whose batch does not
+divide the data axes.  With no context every hook returns its argument
+and nothing changes.
 """
 
 from __future__ import annotations
@@ -198,18 +201,9 @@ def moe_ffn_sharded(x3d, params: dict, cfg: MoEConfig
     bl, sl, _ = x_loc.shape
     t_loc = bl * sl
     x2 = x_loc.reshape(t_loc, d)
-    logits = x2.float() @ router.float()  # (t_loc, E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, k, dim=-1)
-    if cfg.normalize_gates:
-        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates, idx, aux, z = _route_on_ranks(x2, router, cfg, mesh, split,
+                                         b * s)
     gates = gates.to(x2.dtype)
-    stats = torch.cat([
-        probs.sum(0), F.one_hot(idx[:, 0], e).float().sum(0),
-        torch.square(torch.logsumexp(logits, dim=-1)).sum()[None]])
-    stats = act.sum_over(stats, mesh, split) / float(b * s)
-    aux = e * torch.sum(stats[e:2 * e] * stats[:e])
-    z = stats[2 * e]
 
     # Dispatch into (E, C_loc + 1, d); overflow lands in slot C (dropped).
     cap = max(1, -(-int(cfg.capacity_factor * t_loc * k) // e))
@@ -238,12 +232,125 @@ def moe_ffn_sharded(x3d, params: dict, cfg: MoEConfig
     y = act.local_out(y, mesh, tok, (b, s, d))
 
     if cfg.d_ff_shared > 0:
-        sh = silu(x3d @ params["shared_gate"]) * (x3d @ params["shared_up"])
-        sh = act.constrain(sh, "dp", None, "tp")
-        y = y + sh @ params["shared_down"]
+        y = y + _shared_experts(x3d, params)
 
     losses = cfg.aux_loss_coef * aux + cfg.router_z_coef * z
     return y, act.local_out(losses, mesh, [Replicate()] * mesh.ndim)
+
+
+def _route_on_ranks(x2, router, cfg: MoEConfig, mesh, dims, n_tokens: int,
+                    part=slice(None)):
+    """``route`` of this rank's tokens ``x2`` (T, d): gates (float32) and
+    expert ids (T, k), and the aux and z losses from the router
+    statistics of ``x2[part]`` summed over the mesh dims ``dims``, whose
+    ranks hold the ``n_tokens`` tokens' parts between them."""
+    e = cfg.n_experts
+    logits = x2.float() @ router.float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.normalize_gates:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    stats = torch.cat([
+        probs[part].sum(0), F.one_hot(idx[part, 0], e).float().sum(0),
+        torch.square(torch.logsumexp(logits[part], dim=-1)).sum()[None]])
+    stats = act.sum_over(stats, mesh, dims) / float(n_tokens)
+    return gates, idx, e * torch.sum(stats[e:2 * e] * stats[:e]), stats[2 * e]
+
+
+def _shared_experts(x3d, params):
+    """The shared experts on (B, S, d) DTensor tokens: the input gathered
+    over its sequence first and the output reduce-scattered back to it
+    (a DTensor matmul flattens B and S, forward and backward, which it
+    cannot while S is split), the hidden over ``model``."""
+    x3d = act.constrain(x3d, "dp", None, None)
+    sh = silu(x3d @ params["shared_gate"]) * (x3d @ params["shared_up"])
+    sh = act.constrain(sh, "dp", None, "tp")
+    return act.constrain(sh @ params["shared_down"], "dp", "tp", None)
+
+
+def moe_ffn_grouped_sharded(x3d, params: dict, cfg: MoEConfig,
+                            n_groups: int = 1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn(x3d.reshape(B * S, d), params, cfg, n_groups=n_groups)``
+    over the context's mesh, for E divisible by the ``model`` axis.
+    Returns (y (B, S, d), aux losses scalar), both DTensors.
+
+    The path ``_ffn_block`` takes where the batch does not divide the data
+    axes and the tokens are sequence-parallel over ``model``: DTensor
+    cannot place ``moe_ffn``'s dispatch there (its expert products view a
+    sharded dim).  In a per-device region every rank takes all the tokens,
+    so the groups, their floor capacity, the routing, the slot ranks and
+    the dropped set are ``moe_ffn``'s on the whole batch.  Each ``model``
+    rank dispatches only the (token, choice) pairs bound for its E/tp
+    experts (the rest into a dummy expert that is cut off), runs its
+    experts and combines their rows: a sum pending over ``model``, which
+    the caller's constraint reduce-scatters.  The data ranks repeat the
+    work.  The router's statistics are summed over ``model`` from each
+    rank's slice of the tokens, so the aux losses' gradient is split as
+    the combine's is.  Values equal ``moe_ffn``'s at float tolerance (the
+    combine's sum splits over the ranks)."""
+    ctx = act._current()
+    mesh = ctx["mesh"]
+    tp_dim = ctx["all"].index(ctx["tp"][0])
+    n_tp = mesh.shape[tp_dim]
+    x3d = act.as_dtensor(x3d, mesh)
+    b, s, d = x3d.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if e % n_tp:
+        raise ValueError(f"experts {e} must divide the model axis {n_tp}")
+    t = b * s
+    g = n_groups if t % n_groups == 0 else 1
+    tg = t // g
+    capacity = max(1, int(cfg.capacity_factor * tg * k / e))
+
+    rep = [Replicate()] * mesh.ndim
+    over_tp = list(rep)
+    over_tp[tp_dim] = Partial()
+    experts = list(rep)
+    experts[tp_dim] = Shard(0)
+    x2 = act.local_in(x3d, mesh, rep, over_tp).reshape(t, d)
+    router = act.local_in(params["router"], mesh, rep, over_tp)
+    w_gate, w_up, w_down = (act.local_in(params[n], mesh, experts)
+                            for n in ("w_gate", "w_up", "w_down"))
+
+    # Routing of every token, as moe_ffn's ``route``; the statistics of
+    # this rank's slice of the tokens, summed over model.
+    r = mesh.get_coordinate()[tp_dim]
+    gates, idx, aux, z = _route_on_ranks(
+        x2, router, cfg, mesh, [tp_dim], t,
+        slice(r * t // n_tp, (r + 1) * t // n_tp))
+
+    # Slot ranks per group over all k choices; this rank's experts only.
+    e_loc = e // n_tp
+    idx_g = idx.reshape(g, tg, k)
+    gates_g = gates.reshape(g, tg, k)
+    pos_g = expert_positions(idx_g.reshape(g, tg * k), e).reshape(g, tg, k)
+    slot = torch.clamp(pos_g, max=capacity)
+    mine = idx_g - r * e_loc
+    mine = torch.where((mine >= 0) & (mine < e_loc), mine, e_loc)
+    gidx = torch.arange(g, device=x2.device)[:, None, None]
+    xg = x2.reshape(g, tg, 1, d).expand(g, tg, k, d)
+    buf = x2.new_zeros((g, e_loc + 1, capacity + 1, d))
+    buf = buf.index_put((gidx, mine, slot), xg)[:, :e_loc, :capacity]
+
+    h = torch.einsum("gecd,edf->gecf", buf, w_gate)
+    u = torch.einsum("gecd,edf->gecf", buf, w_up)
+    out = torch.einsum("gecf,efd->gecd", silu(h) * u, w_down)
+    out = F.pad(out, (0, 0, 0, 1, 0, 1))  # the dropped slot, the dummy
+
+    gidx = gidx[:, :, 0]
+    y = x2.new_zeros((g, tg, d))
+    for j in range(k):
+        y = y + (gates_g[:, :, j, None].to(x2.dtype)
+                 * out[gidx, mine[:, :, j], slot[:, :, j]])
+    y = act.local_out(y.reshape(b, s, d), mesh, over_tp, (b, s, d))
+    y = act.constrain(y, "dp", "tp", None)
+
+    if cfg.d_ff_shared > 0:
+        y = y + _shared_experts(x3d, params)
+
+    losses = cfg.aux_loss_coef * aux + cfg.router_z_coef * z
+    return y, act.local_out(losses, mesh, rep)
 
 
 def init_moe_params(normal, d_model: int, cfg: MoEConfig, dtype,

@@ -25,8 +25,10 @@ instead of the kernel (on any device): the check that the kernel's
 training step equals the plain one bit for bit.  Under an
 activation-sharding context (``ps.act_sharding``) the lookup is the
 reference's mesh branch: K6 over each rank's row shards, then a
-reduce-scatter (``sharded_embedding_lookup``).  ``lax.scan`` becomes a
-Python loop over the sequence.
+reduce-scatter (``sharded_embedding_lookup``); SASRec's gathers from its
+row-sharded item table (:func:`gather_rows`) and DIEN's target attention
+(:func:`_attention_weights`) run in per-device regions too.  ``lax.scan``
+becomes a Python loop over the sequence.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..device import resolve_device
 from ..kernels.embed_bag import ops as eb_ops
@@ -223,6 +225,56 @@ def sharded_embedding_lookup(tables, ids, *, lookup: str = "kernel",
     return act.constrain(out, "dp", None, None)
 
 
+def gather_rows(table, ids):
+    """``F.embedding(ids, table)``.  Under an activation-sharding context
+    with a DTensor ``table`` whose rows are sharded: a per-device region,
+    as the lookup's mesh branch above, with ``F.embedding`` for K6.  Each
+    rank takes the ids at their own layout (gathered over the mesh dims
+    that split the rows), offsets them to its row shard, clamps them into
+    it and zeroes the rows it does not own.  The sum pending over the
+    row-splitting ranks leaves the region reduce-scattered over the ids'
+    leading dim (all-reduced where it has fewer rows than ranks), so the
+    work after the gather stays split over every mesh dim.  A row sums with
+    zeros only, so the values are the one-device gather's bit for bit.
+    (DTensor's own rule for a row-sharded gather keeps a mask that it
+    compares with ``aten.equal`` when one table is gathered more than
+    once, which ``meta`` tensors cannot run.)"""
+    ctx = act._current()
+    if ctx is None or not isinstance(table, DTensor) or not any(
+            p.is_shard(0) for p in table.placements):
+        return F.embedding(ids, table)
+    mesh = ctx["mesh"]
+    t_pl = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in table.placements)
+    ids = act.as_dtensor(ids, mesh)
+    id_pl = tuple(Replicate() if t.is_shard() else p
+                  for t, p in zip(t_pl, ids.placements))
+    rank = 0  # this rank's row shard, row-major over the row dims
+    for i, (c, p) in enumerate(zip(mesh.get_coordinate(), t_pl)):
+        if p.is_shard():
+            rank = rank * mesh.shape[i] + c
+    tab = act.local_in(table, mesh, t_pl, tuple(
+        t if t.is_shard() else (Partial() if p.is_shard() else Replicate())
+        for t, p in zip(t_pl, id_pl)))
+    v_loc = tab.shape[0]
+    local = act.local_in(ids, mesh, id_pl).long() - rank * v_loc
+    own = (local >= 0) & (local < v_loc)
+    rows = F.embedding(torch.clamp(local, 0, v_loc - 1), tab)
+    rows = rows * own[..., None].to(rows.dtype)
+    out = act.local_out(rows, mesh, tuple(
+        Partial() if t.is_shard() else p for t, p in zip(t_pl, id_pl)),
+        tuple(ids.shape) + (table.shape[1],))
+    want, split = list(id_pl), 1
+    for i, p in enumerate(id_pl):
+        split *= mesh.shape[i] if p.is_shard(0) else 1
+    for i, t in enumerate(t_pl):
+        if t.is_shard():
+            enough = ids.shape[0] >= split * mesh.shape[i]
+            want[i] = Shard(0) if enough else Replicate()
+            split *= mesh.shape[i] if enough else 1
+    return out.redistribute(mesh, tuple(want))
+
+
 def pad_vocab(v: int, multiple: int = 512) -> int:
     """Row-shardable table size (rows padded up; ids never reach padding)."""
     return -(-v // multiple) * multiple
@@ -397,7 +449,7 @@ def _ln(x, g, b, eps=1e-6):
 def sasrec_states(cfg: SASRecConfig, params, item_seq):
     """item_seq: (B, S) int (0 = padding) -> hidden states (B, S, D)."""
     b, s = item_seq.shape
-    h = F.embedding(item_seq, params["item_emb"]) + params["pos_emb"][None, :s]
+    h = gather_rows(params["item_emb"], item_seq) + params["pos_emb"][None, :s]
     h = h * (item_seq != 0)[..., None].to(h.dtype)
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=h.device))
     scale = math.sqrt(float(cfg.embed_dim))
@@ -419,8 +471,8 @@ def sasrec_loss(cfg: SASRecConfig, params, batch):
     """batch: seq (B,S), pos (B,S) next items, neg (B,S) sampled
     negatives.  BCE over positive/negative next-item scores."""
     h = sasrec_states(cfg, params, batch["seq"])
-    pos_e = F.embedding(batch["pos"], params["item_emb"])
-    neg_e = F.embedding(batch["neg"], params["item_emb"])
+    pos_e = gather_rows(params["item_emb"], batch["pos"])
+    neg_e = gather_rows(params["item_emb"], batch["neg"])
     pos_s = torch.sum(h * pos_e, -1).float()
     neg_s = torch.sum(h * neg_e, -1).float()
     mask = (batch["pos"] != 0).float()
@@ -432,7 +484,7 @@ def sasrec_loss(cfg: SASRecConfig, params, batch):
 def sasrec_retrieval(cfg: SASRecConfig, params, item_seq, candidate_ids):
     """(B, S) history x (N,) candidates -> (B, N) scores."""
     h = sasrec_states(cfg, params, item_seq)[:, -1]  # (B, D)
-    cand = F.embedding(candidate_ids, params["item_emb"])  # (N, D)
+    cand = gather_rows(params["item_emb"], candidate_ids)  # (N, D)
     return h @ cand.T
 
 
@@ -522,17 +574,46 @@ def dien_forward(cfg: DIENConfig, params, batch):
         h = _gru_cell(params["gru1"], h, hist[:, t])
         states.append(h)
     states = torch.stack(states, dim=0)  # (S, B, H)
-    # Attention of each interest state vs the target ad.
-    tgt = target[None].expand(s, b, cfg.d_in)
-    att_in = torch.cat([states, tgt], dim=-1)
-    scores = mlp(att_in, params["att"]["w"], params["att"]["b"])[..., 0]
-    att = torch.softmax(scores.float(), dim=0).to(hist.dtype)  # (S, B)
+    att = _attention_weights(params["att"], states, target)  # (S, B)
     h = h0
     for t in range(s):
         h = _gru_cell(params["augru"], h, states[t], att=att[t])
     hist_mean = torch.mean(hist, dim=1)
     head_in = torch.cat([h, target, hist_mean], dim=-1)
     return mlp(head_in, params["head"]["w"], params["head"]["b"])[:, 0]
+
+
+def _target_attention(att_p, states, target):
+    """Attention of each interest state (S, B, H) vs the target ad (B,
+    d_in): the MLP's scores, softmax over S in float32, (S, B) in the
+    states' dtype."""
+    s, b, _ = states.shape
+    tgt = target[None].expand(s, b, target.shape[-1])
+    att_in = torch.cat([states, tgt], dim=-1)
+    scores = mlp(att_in, att_p["w"], att_p["b"])[..., 0]
+    return torch.softmax(scores.float(), dim=0).to(states.dtype)
+
+
+def _attention_weights(att_p, states, target):
+    """:func:`_target_attention`; under an activation-sharding context, in
+    a per-device region over the batch (each column of the scores is its
+    own row's work), the MLP's weights whole with their gradient pending
+    over the batch-splitting ranks.  A DTensor matmul would flatten S with
+    a batch dim sharded over two mesh axes and could not view the product
+    back."""
+    ctx = act._current()
+    if ctx is None or not isinstance(states, DTensor):
+        return _target_attention(att_p, states, target)
+    mesh = ctx["mesh"]
+    rows = act.resolve(ctx, target.shape, ("dp",))
+    cols = tuple(Shard(1) if p.is_shard() else p for p in rows)
+    split = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    rep = (Replicate(),) * mesh.ndim
+    weights = {k: [act.local_in(t, mesh, rep, split) for t in att_p[k]]
+               for k in ("w", "b")}
+    out = _target_attention(weights, act.local_in(states, mesh, cols),
+                            act.local_in(target, mesh, rows))
+    return act.local_out(out, mesh, cols, tuple(states.shape[:2]))
 
 
 def dien_loss(cfg: DIENConfig, params, batch):

@@ -51,7 +51,8 @@ from .layers import (
     rope_row,
     silu,
 )
-from .moe import MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded
+from .moe import (MoEConfig, init_moe_params, moe_ffn, moe_ffn_grouped_sharded,
+                  moe_ffn_sharded)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -353,6 +354,9 @@ def _mla_attention(cfg: LMConfig, p, x, cos, sin, positions=None):
     shared by all heads; scale ``(nope + rope) ** -0.5``."""
     m = cfg.mla
     b, s, _ = x.shape
+    # the sequence-parallel input gathered first, as the GQA path does (a
+    # DTensor matmul flattens B and S, which it cannot while S is split)
+    x = act.constrain(x, "dp", None, None)
     cq = rms_norm(x @ p["w_dq"], p["q_norm"])
     q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])  # (B,S,H,nope+rope)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
@@ -390,11 +394,17 @@ def _ffn_block(cfg: LMConfig, p, x):
         cfg_moe = dataclasses.replace(
             cfg_moe, capacity_factor=cfg.moe_capacity_factor_override)
     ctx = act._current()
-    if (ctx is not None and b % act.mesh_size(ctx, "dp") == 0
+    if (ctx is not None
             and cfg_moe.n_experts % act.mesh_size(ctx, "tp") == 0):
-        # SP-preserving all-to-all expert parallelism: tokens leave their
-        # (dp, tp) shard only through the EP exchange.
-        return moe_ffn_sharded(x, p["moe"], cfg_moe)
+        if b % act.mesh_size(ctx, "dp") == 0:
+            # SP-preserving all-to-all expert parallelism: tokens leave
+            # their (dp, tp) shard only through the EP exchange.
+            return moe_ffn_sharded(x, p["moe"], cfg_moe)
+        if isinstance(x, DTensor) and s % act.mesh_size(ctx, "tp") == 0:
+            # sequence-parallel tokens whose batch does not divide the
+            # data axes: moe_ffn's groups in a per-device region
+            return moe_ffn_grouped_sharded(x, p["moe"], cfg_moe,
+                                           n_groups=cfg.moe_groups)
     y, aux = moe_ffn(x.reshape(b * s, d), p["moe"], cfg_moe,
                      n_groups=cfg.moe_groups)
     return y.reshape(b, s, d), aux
@@ -439,7 +449,7 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
     # The embedding gather.  ``F.embedding``'s backward sums repeated
     # tokens in a fixed order; an indexing gather's backward accumulates
     # them in parallel, in an order that changes from run to run.
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), _embed_table(cfg, params))
     x = act.constrain(x, "dp", "tp", None)  # sequence-parallel residual
     cos, sin = rope_frequencies(cfg.rope_dim, tokens.shape[1],
                                 cfg.rope_theta, device=x.device)
@@ -464,8 +474,17 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
     return _apply_norm(cfg, params["final_norm"], x), aux_total
 
 
+def _embed_table(cfg: LMConfig, params):
+    """The embedding table; a tied one under a mesh with its gradient
+    pinned to its layout at each of its two uses (``act.pin_grad``)."""
+    if cfg.tie_embeddings:
+        return act.pin_grad(params["embed"])
+    return params["embed"]
+
+
 def _unembed(cfg: LMConfig, params):
-    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return (_embed_table(cfg, params).T if cfg.tie_embeddings
+            else params["unembed"])
 
 
 def loss_fn(cfg: LMConfig, params, batch) -> torch.Tensor:
@@ -615,6 +634,8 @@ def _decode_attn_mla(cfg, p, x, cache_len: int, cos, sin, cache_ckv,
     pr = torch.softmax(s, dim=-1).to(cache_ckv.dtype)
     o_lat = torch.einsum("bhk,bkr->bhr", pr, cache_ckv)  # (B,H,r)
     o = torch.einsum("bhr,rhe->bhe", o_lat, p["w_uv"])  # (B,H,v_dim)
+    if isinstance(o, DTensor):  # the row-parallel product per device
+        return _out_proj(o[:, None], p["w_o"])
     return torch.einsum("bhe,hed->bd", o, p["w_o"])[:, None]
 
 
@@ -639,15 +660,18 @@ def make_serve_step(cfg: LMConfig):
                                 device=x.device)
 
             def run_layer(p, x, layer_cache):
+                # under a mesh each block's pending sum is reduced before
+                # the residual add, as _layer_fn's constraints do
                 h = _apply_norm(cfg, p["ln1"], x)
                 a = decode_attn(cfg, p["attn"], h, length, cos, sin,
                                 *layer_cache)
+                a = act.constrain(a, "dp", "tp", None)
                 if cfg.parallel_block:
                     f, _ = _ffn_block(cfg, p, h)
-                    return x + a + f
+                    return x + a + act.constrain(f, "dp", "tp", None)
                 x = x + a
                 f, _ = _ffn_block(cfg, p, _apply_norm(cfg, p["ln2"], x))
-                return x + f
+                return x + act.constrain(f, "dp", "tp", None)
 
             def layer_caches(group, i):
                 return [cache[group][name][i] for name in names]

@@ -97,6 +97,34 @@ def enabled() -> bool:
     return _current() is not None
 
 
+class _PinGrad(torch.autograd.Function):
+    """``x`` as it is; its gradient redistributed to ``x``'s placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and grad.placements != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def pin_grad(x):
+    """``x``; under a context, for a DTensor ``x``, an alias whose
+    gradient arrives at ``x``'s own placements.  A tensor used twice (a
+    tied embedding: the lookup and the output projection) gets two
+    gradients in different layouts, pending sums over different mesh
+    dims, and adding them would need a redistribution from a shard to a
+    pending sum, which some torch versions lack; pinned, each is reduced
+    to ``x``'s layout first."""
+    if _current() is None or not isinstance(x, DTensor):
+        return x
+    return _PinGrad.apply(x)
+
+
 def mesh_size(ctx, role: str) -> int:
     """The number of devices a role spans."""
     n = 1

@@ -1,11 +1,15 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) on a fake (2, 2)
-mesh and, through its command line, on the production 16 x 16 one; each
-in a child process, which holds the fake process group.
+mesh, on a fake (2, 2, 2) (``pod``, ``data``, ``model``) one and,
+through its command line, on the production 16 x 16 one; each in a child
+process, which holds the fake process group.
 
 A cell that runs records the reference's fields (per-device bytes from
 the local shards, flops, collectives, the roofline terms under the H100
 SXM's constants); a cell DTensor cannot place is recorded ``ok: false``
-naming the operator, and the run goes on."""
+naming the operator, and the run goes on.  Every cell of the registry
+places; the unplaceable one here is made so, its step function swapped
+for one that asks for ``nonzero``, whose output shape depends on values
+that ``meta`` tensors do not have."""
 
 import json
 import os
@@ -21,16 +25,31 @@ CELLS = [("dlrm-rm2", "serve_p99"), ("qwen1.5-0.5b", "long_500k"),
          ("gin-tu", "molecule")]
 
 
+UNPLACEABLE = ("dlrm-rm2", "serve_p99")  # its function swapped
+CELLS8 = [("dien", "train_batch")]  # the batch over (pod, data)
+
+
 @pytest.fixture(scope="module")
 def fake4(tmp_path_factory):
+    """The records of the (2, 2) mesh's cells (and, under
+    ``"unplaceable"``, the swapped cell's) and of the (2, 2, 2) mesh's;
+    the two meshes in two children side by side."""
     d = tmp_path_factory.mktemp("dryrun")
-    subprocess.run([sys.executable, str(Path(__file__).resolve()), str(d)],
-                   check=True, timeout=300, env=ENV)
-    return {(a, s): json.loads((d / "fake4" / f"{a}__{s}.json").read_text())
-            for a, s in CELLS}
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               which, str(d)], env=ENV)
+             for which in ("fake4", "fake8")]
+    for p in procs:
+        assert p.wait(timeout=300) == 0
+    out = {(a, s): json.loads((d / "fake4" / f"{a}__{s}.json").read_text())
+           for a, s in CELLS}
+    out["unplaceable"] = json.loads(
+        (d / "unplaceable" / "{}__{}.json".format(*UNPLACEABLE)).read_text())
+    out.update({(a, s, 8): json.loads(
+        (d / "fake8" / f"{a}__{s}.json").read_text()) for a, s in CELLS8})
+    return out
 
 
-@pytest.mark.parametrize("arch,shape", CELLS[:2])
+@pytest.mark.parametrize("arch,shape", CELLS)
 def test_cell_records_the_reference_fields(fake4, arch, shape):
     rec = fake4[(arch, shape)]
     assert rec["ok"] and rec["chips"] == 4 and rec["mesh"] == "fake4"
@@ -59,9 +78,20 @@ def test_row_sharded_lookup_reduce_scatters(fake4):
 
 
 def test_unplaceable_cell_is_recorded_not_raised(fake4):
-    rec = fake4[("gin-tu", "molecule")]
+    rec = fake4["unplaceable"]
     assert rec["ok"] is False
     assert "aten." in rec["error"] and rec["traceback"]
+
+
+@pytest.mark.parametrize("arch,shape", CELLS8)
+def test_three_axis_mesh_places_a_batch_over_two_axes(fake4, arch, shape):
+    """DIEN's train_batch on (pod 2, data 2, model 2): its batch over two
+    mesh axes, the target attention in its per-device region."""
+    rec = fake4[(arch, shape, 8)]
+    assert rec["ok"], rec.get("error")
+    assert rec["chips"] == 8 and rec["mesh"] == "fake8"
+    assert rec["per_device_flops"] > 0 and rec["hlo_flops_global"] == \
+        8 * rec["per_device_flops"]
 
 
 def test_command_line_on_the_production_mesh(tmp_path):
@@ -77,15 +107,28 @@ def test_command_line_on_the_production_mesh(tmp_path):
     assert path.stat().st_mtime_ns == stamp
 
 
-def _fake4(out):
+def _unplaceable(params, batch):
+    import torch
+
+    return torch.nonzero(batch["sparse"])
+
+
+def _fake(which, out):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import close_mesh, make_fake_mesh
 
-    mesh = make_fake_mesh((2, 2), ("data", "model"))
-    for arch, shape in CELLS:
-        dryrun.run_cell(arch, shape, "fake4", Path(out), mesh=mesh)
+    if which == "fake8":
+        mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
+        for arch, shape in CELLS8:
+            dryrun.run_cell(arch, shape, "fake8", Path(out), mesh=mesh)
+    else:
+        mesh = make_fake_mesh((2, 2), ("data", "model"))
+        for arch, shape in CELLS:
+            dryrun.run_cell(arch, shape, "fake4", Path(out), mesh=mesh)
+        dryrun.run_cell(*UNPLACEABLE, "unplaceable", Path(out), mesh=mesh,
+                        overrides={"fn": _unplaceable})
     close_mesh()
 
 
 if __name__ == "__main__":
-    _fake4(sys.argv[1])
+    _fake(*sys.argv[1:3])
