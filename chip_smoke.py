@@ -2680,6 +2680,38 @@ def k7_compare(kern: torch.Tensor, plain: torch.Tensor) -> dict:
                 ok=atol <= K7_BF16_ATOL and rel <= K7_ROW_REL)
 
 
+def k7_plain_bf16_p(q, k, v, *, causal=True, bk=128) -> torch.Tensor:
+    """The plain version with the bf16 kernel's rounding: scores in
+    float32, the online softmax over key tiles of ``bk`` in base 2 with the
+    scale folded in (p = 2^(s c - m c), m the running maximum), each tile's
+    P rounded to bf16 for P V while its sum stays in float32, O divided by
+    max(l, 1e-30) at the end; every kv head read by its GQA group."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    c = d ** -0.5 * 1.4426950408889634
+    qf = q.float().transpose(1, 2)  # (B, HQ, S_q, D)
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+              for t in (k, v))
+    m = torch.full((b, hq, sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros(b, hq, sq, 1, device=q.device)
+    o = torch.zeros(b, hq, sq, d, device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    for j0 in range(0, sk, bk):
+        j1 = min(sk, j0 + bk)
+        s = qf @ kf[:, :, j0:j1].transpose(-1, -2)
+        if causal:
+            keys = torch.arange(j0, j1, device=q.device)[None, :]
+            s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        mc = torch.where(m_new == float("-inf"), 0.0, m_new * c)
+        a = torch.exp2(m * c - mc)
+        p = torch.exp2(s * c - mc)
+        l = l * a + p.sum(-1, keepdim=True)
+        o = o * a + p.to(torch.bfloat16).float() @ vf[:, :, j0:j1]
+        m = m_new
+    return (o / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
 def fmt_k7(c: dict) -> str:
     return (f"max_abs={c['max_abs']:.4e} atol_needed={c['atol_needed']:.4e} "
             f"(limit {K7_BF16_ATOL:g} at rtol {K7_BF16_RTOL:g}) max_row_rel="
@@ -2740,12 +2772,23 @@ def k7_small_checks(device):
     with S_q < S_k (the bottom-right offset), GQA, head dim 128 (ragged,
     causal and not), q, k, v as strided views of one fused (B, S, 3, H, D)
     tensor, and one bf16 case on an unaligned view, which the wrapper
-    copies first.  A bf16 call at head dim 32 must raise ValueError."""
+    copies first.  Then more head dim 128 cases, from a generator of their
+    own (the cases above draw what they always drew): MHA, GQA groups of
+    3, 4 and 12, a ragged S edge, causal with S_q < S_k, q, k, v as
+    strided views of one fused (B, S, HQ + 2 HK, D) projection, and causal
+    S_q = S_k (the prefill's own mask).  That last one is held, in bf16,
+    against :func:`k7_plain_bf16_p`, the plain version with the kernel's P
+    in bf16: with a few keys a row the P rounding alone moves outputs by
+    up to 3.3e-3 against the float32-P plain version, over the limit's
+    2.5e-3 of atol (set at the prefill shape); that reading is printed.
+    A bf16 call at head dim 32 must raise ValueError."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
     gen = torch.Generator(device=device)
     gen.manual_seed(8)
+    gen_d128 = torch.Generator(device=device)
+    gen_d128.manual_seed(9)
     cases = {  # name: (B, S_q, S_k, HQ, HK, D, causal)
         "non-causal S=256": (2, 256, 256, 4, 4, 64, False),
         "ragged S=200 causal": (1, 200, 200, 4, 4, 64, True),
@@ -2756,36 +2799,68 @@ def k7_small_checks(device):
         "D=128 ragged S=1000 non-causal": (1, 1000, 1000, 2, 2, 128, False),
         "fused (B,S,3,H,D) views S=520": (2, 520, 520, 4, 4, 64, True),
     }
+    d128 = {  # head dim 128
+        "D=128 MHA causal S_q=300 S_k=1000": (1, 300, 1000, 4, 4, 128, True),
+        "D=128 GQA group 3 causal S_q=384 S_k=1000": (
+            1, 384, 1000, 6, 2, 128, True),
+        "D=128 GQA group 4 causal S_q=300 S_k=1000": (
+            1, 300, 1000, 8, 2, 128, True),
+        "D=128 GQA group 12 causal S_q=256 S_k=640": (
+            1, 256, 640, 24, 2, 128, True),
+        "D=128 GQA group 4 ragged S=1000 non-causal": (
+            2, 1000, 1000, 8, 2, 128, False),
+        "D=128 GQA group 12 ragged S_q=200 S_k=520 causal": (
+            1, 200, 520, 24, 2, 128, True),
+        "fused (B,S,HQ+2HK,D) views D=128 group 4 S=520 non-causal": (
+            2, 520, 520, 8, 2, 128, False),
+        "D=128 GQA group 4 causal S=520, P in bf16": (
+            1, 520, 520, 8, 2, 128, True),
+    }
     worst = {"float32": 0.0, "atol_needed": -1.0, "max_row_rel": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, (b, sq, sk, hq, hk, d, causal) in cases.items():
-            if name.startswith("fused"):
-                x = torch.randn(b, sk, 3, hq, d, generator=gen,
-                                device=device).to(dtype)
-                q, k, v = x[:, :sq, 0], x[:, :, 1], x[:, :, 2]
-            else:
-                q = torch.randn(b, sq, hq, d, generator=gen, device=device)
-                k, v = (torch.randn(b, sk, hk, d, generator=gen,
-                                    device=device) for _ in range(2))
-                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            if dtype == torch.bfloat16 and name.startswith("ragged S=200"):
-                # an unaligned view (row stride 65 elements)
-                q = torch.nn.functional.pad(q, (0, 1))[..., :d]
-            kern = fa_ops.flash_attention(q, k, v, causal=causal)
-            plain = fa_ref.flash_attention_plain(q, k, v, causal=causal)
-            if dtype == torch.float32:
-                err = max_abs(kern, plain)
-                worst["float32"] = max(worst["float32"], err)
-                if not torch.allclose(kern, plain, rtol=K7_F32_TOL,
-                                      atol=K7_F32_TOL):
-                    raise AssertionError(f"K7 {name} float32: differs from "
-                                         f"its plain version by {err}")
-                continue
-            cmp = k7_compare(kern, plain)
-            for key in ("atol_needed", "max_row_rel"):
-                worst[key] = max(worst[key], cmp[key])
-            if not cmp["ok"]:
-                raise AssertionError(f"K7 {name} bfloat16: {fmt_k7(cmp)}")
+    p_bf16 = {}  # the bf16-P case against both plain versions
+
+    def check(name, b, sq, sk, hq, hk, d, causal, dtype, gen):
+        if name.startswith("fused (B,S,3"):
+            x = torch.randn(b, sk, 3, hq, d, generator=gen,
+                            device=device).to(dtype)
+            q, k, v = x[:, :sq, 0], x[:, :, 1], x[:, :, 2]
+        elif name.startswith("fused"):
+            x = torch.randn(b, sk, hq + 2 * hk, d, generator=gen,
+                            device=device).to(dtype)
+            q, k, v = x[:, :sq, :hq], x[:, :, hq:hq + hk], x[:, :, hq + hk:]
+        else:
+            q = torch.randn(b, sq, hq, d, generator=gen, device=device)
+            k, v = (torch.randn(b, sk, hk, d, generator=gen, device=device)
+                    for _ in range(2))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        if dtype == torch.bfloat16 and name.startswith("ragged S=200"):
+            # an unaligned view (row stride 65 elements)
+            q = torch.nn.functional.pad(q, (0, 1))[..., :d]
+        kern = fa_ops.flash_attention(q, k, v, causal=causal)
+        plain = fa_ref.flash_attention_plain(q, k, v, causal=causal)
+        if dtype == torch.bfloat16 and name.endswith("P in bf16"):
+            p_bf16[name] = {"P in float32 (not held)": k7_compare(kern, plain)}
+            plain = k7_plain_bf16_p(q, k, v, causal=causal,
+                                    bk=fa_ops.BF16_TILES[d][1])
+            p_bf16[name]["P in bf16"] = k7_compare(kern, plain)
+        if dtype == torch.float32:
+            err = max_abs(kern, plain)
+            worst["float32"] = max(worst["float32"], err)
+            if not torch.allclose(kern, plain, rtol=K7_F32_TOL,
+                                  atol=K7_F32_TOL):
+                raise AssertionError(f"K7 {name} float32: differs from its "
+                                     f"plain version by {err}")
+            return
+        cmp = k7_compare(kern, plain)
+        for key in ("atol_needed", "max_row_rel"):
+            worst[key] = max(worst[key], cmp[key])
+        if not cmp["ok"]:
+            raise AssertionError(f"K7 {name} bfloat16: {fmt_k7(cmp)}")
+
+    for group, g in ((cases, gen), (d128, gen_d128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, case in group.items():
+                check(name, *case, dtype, g)
     q32 = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=device)
     try:
         fa_ops.flash_attention(q32, q32, q32)
@@ -2793,12 +2868,15 @@ def k7_small_checks(device):
         refused = str(exc)
     else:
         raise AssertionError("K7: a bf16 call at head dim 32 did not raise")
-    print(f"K7 small checks ({', '.join(cases)}): float32 max abs "
-          f"{worst['float32']:.3e} (rtol/atol {K7_F32_TOL:g}); bfloat16 "
+    print(f"K7 small checks ({', '.join([*cases, *d128])}): float32 max "
+          f"abs {worst['float32']:.3e} (rtol/atol {K7_F32_TOL:g}); bfloat16 "
           f"atol_needed {worst['atol_needed']:.3e} (limit {K7_BF16_ATOL:g} "
           f"at rtol {K7_BF16_RTOL:g}) max_row_rel {worst['max_row_rel']:.3e} "
           f"(limit {K7_ROW_REL:g}; the S=200 case on an unaligned view); "
-          f"bf16 at D=32 refused: {refused}", flush=True)
+          f"bf16 at D=32 refused: {refused}; "
+          + "; ".join(f"{n} against the plain version with {ref}: "
+                      f"{fmt_k7(c)}" for n, by in p_bf16.items()
+                      for ref, c in by.items()), flush=True)
 
 
 def k7_sass_counts(lib_path) -> dict:
@@ -4739,8 +4817,8 @@ def main() -> int:
     add_totals(counts_h)
     del served
     torch.cuda.empty_cache()
-    entries["flash_attention"] = k7_entry(
-        device, (1, seq, cfg.n_heads, cfg.head_dim))
+    entries["flash_attention"] = k7_entry(  # the smoke config's D is 16
+        device, (1, seq, cfg.n_heads, cfg.head_dim if scale == 1.0 else 64))
     k7_small_checks(device)
 
     # ---- phases i-k: the recsys family, DLRM-RM2 at its published widths

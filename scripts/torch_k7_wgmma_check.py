@@ -6,11 +6,13 @@ own pieces, as ``flash_fwd_wgmma`` uses them: the 4-D TMA maps with the
 tile of 128 keys loaded by TMA onto one mbarrier, S = Q K^T by
 ``issue_s`` (wgmma, both operands K-major from shared memory), S rounded
 to bf16 register fragments (``to_bf16_frags``) and O = P V by ``issue_pv``
-(wgmma, P from registers, V MN-major from shared memory).  It writes S
-and O in float32 and holds them against torch products of the same bf16
-values, at D = 64 and 128, on contiguous inputs and on strided views of
-one fused (B, S, 3, H, D) tensor at a non-zero head and batch.  Exits 1
-on any difference above float32 rounding.  The test kernel is written
+(wgmma, P from registers, V MN-major from shared memory); at D = 128 also
+S by ``issue_s_rq``, Q's A fragments read from the swizzled tile into
+registers (``load_q_frags``), the form the kernel runs at D = 128.  It
+writes S (both forms) and O in float32 and holds them against torch
+products of the same bf16 values, at D = 64 and 128, on contiguous inputs
+and on strided views of one fused (B, S, 3, H, D) tensor at a non-zero
+head and batch.  Exits 1 on any difference above float32 rounding.  The test kernel is written
 and built under ``build/k7_wgmma_check/`` (git-ignored).
 
   python3 scripts/torch_k7_wgmma_check.py      (on a CUDA card, with nvcc)
@@ -40,7 +42,7 @@ __global__ void __launch_bounds__(128) tile_check(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, int h, int hk, int b,
-    float* s_out, float* o_out) {
+    float* s_out, float* o_out, float* s2_out) {
   constexpr int BK = 128, CB = D / 64;
   extern __shared__ uint8_t raw[];
   __shared__ __align__(8) uint64_t bar_mem;
@@ -81,6 +83,19 @@ __global__ void __launch_bounds__(128) tile_check(
   for (int j = 0; j < BK / 8; ++j)
     for (int e = 0; e < 4; ++e)
       s_out[(r0 + 8 * (e >> 1)) * BK + 8 * j + c0 + (e & 1)] = s[4 * j + e];
+  if constexpr (D == 128) {
+    uint32_t qf[D / 16][4];
+    load_q_frags<D>(qf, q_s, 64, warp, lane >> 2, lane & 3);
+    wg_fence();
+    issue_s_rq<D, BK>(s, qf, k_s);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    for (int j = 0; j < BK / 8; ++j)
+      for (int e = 0; e < 4; ++e)
+        s2_out[(r0 + 8 * (e >> 1)) * BK + 8 * j + c0 + (e & 1)] =
+            s[4 * j + e];
+  }
   for (int j = 0; j < D / 8; ++j)
     for (int e = 0; e < 4; ++e)
       o_out[(r0 + 8 * (e >> 1)) * D + 8 * j + c0 + (e & 1)] = o[4 * j + e];
@@ -89,7 +104,7 @@ __global__ void __launch_bounds__(128) tile_check(
 template <int D>
 int run(const void* q, const void* k, const void* v, int H, int HK, int B,
         int Sq, int Sk, const long long* st, int h, int hk, int b, float* s,
-        float* o, cudaStream_t stream) {
+        float* o, float* s2, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]};
   CUtensorMap tq, tk, tv;
@@ -100,7 +115,7 @@ int run(const void* q, const void* k, const void* v, int H, int HK, int B,
   const int smem = (D / 64) * (64 + 2 * 128) * 128 + 1024;
   cudaFuncSetAttribute(tile_check<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  tile_check<D><<<1, 128, smem, stream>>>(tq, tk, tv, h, hk, b, s, o);
+  tile_check<D><<<1, 128, smem, stream>>>(tq, tk, tv, h, hk, b, s, o, s2);
   return (int)cudaGetLastError();
 }
 }  // namespace
@@ -108,12 +123,14 @@ int run(const void* q, const void* k, const void* v, int H, int HK, int B,
 extern "C" int k7_tile_check(const void* q, const void* k, const void* v,
                              int D, int H, int HK, int B, int Sq, int Sk,
                              const long long* strides, int h, int hk, int b,
-                             float* s, float* o, void* stream) {
+                             float* s, float* o, float* s2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return run<64>(q, k, v, H, HK, B, Sq, Sk, strides, h, hk, b, s, o, st);
+    return run<64>(q, k, v, H, HK, B, Sq, Sk, strides, h, hk, b, s, o, s2,
+                   st);
   if (D == 128)
-    return run<128>(q, k, v, H, HK, B, Sq, Sk, strides, h, hk, b, s, o, st);
+    return run<128>(q, k, v, H, HK, B, Sq, Sk, strides, h, hk, b, s, o, s2,
+                    st);
   return (int)cudaErrorInvalidValue;
 }
 """
@@ -132,7 +149,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.k7_tile_check
     P, I32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P] + [I32] * 6 + [P] + [I32] * 3 + [P, P, P]
+    fn.argtypes = [P, P, P] + [I32] * 6 + [P] + [I32] * 3 + [P, P, P, P]
     fn.restype = I32
     return fn
 
@@ -154,11 +171,12 @@ def case(fn, d, fused, device, gen) -> float:
         h, hk_i, b = 0, 0, 0
     s = torch.empty(64, BK, device=device)
     o = torch.empty(64, d, device=device)
+    s2 = torch.full((64, BK), float("nan"), device=device)
     strides = (ctypes.c_longlong * 9)(*[st for t in (q, k, v)
                                         for st in t.stride()[:3]])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d, hq, hk,
                     b_n, sq, sk, strides, h, hk_i, b, s.data_ptr(),
-                    o.data_ptr(),
+                    o.data_ptr(), s2.data_ptr(),
                     torch.cuda.current_stream().cuda_stream), "k7_tile_check")
     torch.cuda.synchronize()
     qf, kf, vf = (t[b, :, i].float() for t, i in ((q, h), (k, hk_i),
@@ -167,9 +185,14 @@ def case(fn, d, fused, device, gen) -> float:
     o_ref = s.to(torch.bfloat16).float() @ vf
     err_s = float((s - s_ref).abs().max() / s_ref.abs().max())
     err_o = float((o - o_ref).abs().max() / o_ref.abs().max())
+    # Q from registers: the same products, summed in the same order
+    err_rq = (float((s2 - s_ref).abs().max() / s_ref.abs().max())
+              if d == 128 else 0.0)
     print(f"D={d} {'fused strided views' if fused else 'contiguous'}: "
-          f"S rel err {err_s:.3e}, O rel err {err_o:.3e}", flush=True)
-    return max(err_s, err_o)
+          f"S rel err {err_s:.3e}, O rel err {err_o:.3e}"
+          + (f", S with Q in registers rel err {err_rq:.3e}" if d == 128
+             else ""), flush=True)
+    return max(err_s, err_o, err_rq)
 
 
 def main() -> int:

@@ -69,6 +69,17 @@
 //    - Masks only where needed: the tiles before the query tile's
 //      diagonal that end before S_k take no compare; the tiles that cross
 //      the diagonal and a ragged last key tile are masked per element.
+//    - D = 128 keeps each consumer's Q rows in registers, the A operand
+//      of S = Q K^T (read once from the swizzled tile), so a k-step reads
+//      only K from shared memory; D = 64 reads Q from shared memory.  At
+//      granite-8b's layer (1, 32768, 32, 128), 8 kv heads, the card sits
+//      at its 700 W limit and 1.40-1.55 GHz under this kernel, not the
+//      1.83 GHz its 989 TFLOP/s assume (products alone run at ~96 % of the
+//      tensor cores' peak at 1.5 GHz), and the K/V loads alone take 6 of
+//      its 14 ms, so L2 is not the limit.  Q in registers took 4-5 % off;
+//      a thread-block cluster of two query heads of one kv head sharing
+//      each K/V tile by TMA multicast halved L2's reads and was no faster
+//      (scripts/torch_k7_variants.py --shape d128, H100 SXM, 700 W).
 //  * flash_fwd, for float32 inputs: float32 SIMT arithmetic, q scaled
 //    first.  D / 32 threads share a query row
 //    (one thread for D <= 32), each keeping 32 of its dims of q and of the
@@ -418,15 +429,47 @@ template <> __device__ __forceinline__ void wgmma_rs<128>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 128, f32) (+)= A (64 x 16, bf16 registers) * B (16 x 128, smem
+// desc, K-major): S = Q K^T with Q in registers.
+__device__ __forceinline__ void wgmma_rk128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // Tile shapes of the bf16 kernel: NC consumer warpgroups of 64 query rows
-// (BQ = 64 NC), BK keys a K/V tile, ST stages in the K/V ring.  Shared
-// memory: D = 64, 24 KB of Q + 3 x 32 KB of K/V; D = 128, 32 + 2 x 64 KB.
+// (BQ = 64 NC), BK keys a K/V tile, ST stages in the K/V ring; QR: each
+// consumer's Q rows in registers for S = Q K^T (issue_s_rq), else read
+// from shared memory at every k-step (issue_s).  Shared memory: D = 64,
+// 24 KB of Q + 3 x 32 KB of K/V; D = 128, 32 + 2 x 64 KB.
 template <int D> struct Tiles;
 template <> struct Tiles<64> {
   static constexpr int NC = 3, BK = 128, ST = 3, REG_LOAD = 32, REG_MMA = 160;
+  static constexpr bool QR = false;
 };
 template <> struct Tiles<128> {
   static constexpr int NC = 2, BK = 128, ST = 2, REG_LOAD = 24, REG_MMA = 240;
+  static constexpr bool QR = true;
 };
 
 // Fragment layouts (PTX ISA, wgmma m64nNk16): thread 32 w + 4 g + t of a
@@ -447,6 +490,57 @@ __device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_base,
     wgmma_ss<BK>(s, desc_sw128(q_base + col * rows_q * 128 + off, 1, 64),
                  desc_sw128(k_base + col * BK * 128 + off, 1, 64), kk > 0);
   }
+}
+
+// The same product with Q_w in registers, the A operand of wgmma: a
+// k-step reads only K from shared memory (K's 4 KB instead of Q's 2 KB
+// and K's).  Only the BK = 128 form exists.
+template <int D, int BK>
+__device__ __forceinline__ void issue_s_rq(float (&s)[BK / 2],
+                                           const uint32_t (&qf)[D / 16][4],
+                                           uint32_t k_base) {
+  static_assert(BK == 128, "wgmma_rk128 is the n128 form");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk / 4), off = (kk % 4) * 32;
+    wgmma_rk128(s, qf[kk], desc_sw128(k_base + col * BK * 128 + off, 1, 64),
+                kk > 0);
+  }
+}
+
+// This thread's A fragments of its warpgroup's Q rows (the layout of the
+// note above: k-step kk, rows 16 warp + g and + 8, columns 16 kk + 2 t4
+// and + 8, two bf16 a register), read once from the 128B-swizzled Q tile
+// at q_w: a row's 16-byte chunk c is stored at chunk c ^ (row % 8).
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
+                                             uint32_t q_w, int rows_q,
+                                             int warp, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * warp + g + (r & 1) * 8;
+      const int col = 16 * kk + 2 * t4 + (r >> 1) * 8;
+      const int byte = (col % 64) * 2;
+      const uint32_t addr = q_w + (col / 64) * rows_q * 128 + row * 128 +
+                            ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15));
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(qf[kk][r]) : "r"(addr));
+    }
+  }
+}
+
+// S_w = Q_w K^T by either form.
+template <int D, int BK, bool QR>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
+                                         const uint32_t (&qf)[QR ? D / 16 : 1]
+                                                             [4],
+                                         uint32_t q_w, int rows_q,
+                                         uint32_t k_base) {
+  if constexpr (QR)
+    issue_s_rq<D, BK>(s, qf, k_base);
+  else
+    issue_s<D, BK>(s, q_w, rows_q, k_base);
 }
 
 // O (64 x D) += P (64 x BK, bf16 registers) V (BK x D).  V is MN-major:
@@ -548,6 +642,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, int HQ, int group, int Sq,
                 int Sk, Strides os, float scale_log2, int causal) {
   constexpr int NC = Tiles<D>::NC, BK = Tiles<D>::BK, ST = Tiles<D>::ST;
+  constexpr bool QR = Tiles<D>::QR;
   constexpr int BQ = 64 * NC, CB = D / 64;  // CB: 64-column blocks
   constexpr uint32_t Q_BYTES = CB * BQ * 128, KV_BYTES = CB * BK * 128;
   extern __shared__ uint8_t smem_raw[];
@@ -618,7 +713,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = q0 + 64 * w + 16 * warp + g;  // and row0 + 8
     const uint32_t q_w = q_s + w * 64 * 128;
     float s_acc[BK / 2], o_acc[D / 2];
-    uint32_t p[BK / 16][4];
+    uint32_t p[BK / 16][4], qf[QR ? D / 16 : 1][4];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s_acc[i] = 0.f;
 #pragma unroll
@@ -638,11 +733,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (w == NC - 1) named_arrive(1, 256);
 
     mbar_wait(bar_q, 0);
+    if constexpr (QR) load_q_frags<D>(qf, q_w, BQ, warp, g, t4);
     // Tile 0: S_0 alone.
     mbar_wait(k_full(0), 0);
     named_sync(1 + w, 256);
     wg_fence();
-    issue_s<D, BK>(s_acc, q_w, BQ, k_s);
+    issue_qk<D, BK, QR>(s_acc, qf, q_w, BQ, k_s);
     wg_commit();
     named_arrive(next, 256);
     wg_wait<0>();
@@ -666,7 +762,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(s_acc);
       fence_regs(p);
       wg_fence();
-      issue_s<D, BK>(s_acc, q_w, BQ, k_s + s * KV_BYTES);
+      issue_qk<D, BK, QR>(s_acc, qf, q_w, BQ, k_s + s * KV_BYTES);
       wg_commit();
       rescale_o<D>(o_acc, a0, a1);
       mbar_wait(v_full(sp), ((t - 1) / ST) & 1);
