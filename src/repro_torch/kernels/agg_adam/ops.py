@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...device import host_to_device
+from ...tracing import span
 from .. import _build
 from . import ref
 from .ref import HP_COLS
@@ -356,17 +357,21 @@ def multi_job_adam_update_fused(p, gs, mu, nu, counts, *, block_idx,
     ``job_slot`` map may be host arrays or int32 tensors already on the
     device (the engine uploads them once per applier).  ``gs`` is the
     per-job sequence of packed gradients, concatenated here every tick as
-    the reference does, or one pre-concatenated vector.
+    the reference does, or one pre-concatenated vector.  The two are
+    the spans ``tick.concat`` and ``tick.k1``.
     """
     device = p.device
-    g_cat = _tick_grads(gs, counts, block_idx, job_sizes)
+    with span("tick.concat"):
+        g_cat = _tick_grads(gs, counts, block_idx, job_sizes)
     if job_slot is None:
         job_slot = _job_slot(job_sizes)
     hp = host_to_device(multi_job_hp(counts, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd),
                    device)
-    return aggregate_adam_multijob_fused(
-        p, g_cat, mu, nu, hp, host_to_device(block_idx, device, torch.int32),
-        host_to_device(job_slot, device, torch.int32), block=block)
+    block_idx = host_to_device(block_idx, device, torch.int32)
+    job_slot = host_to_device(job_slot, device, torch.int32)
+    with span("tick.k1"):
+        return aggregate_adam_multijob_fused(p, g_cat, mu, nu, hp, block_idx,
+                                             job_slot, block=block)
 
 
 def block_adam_update(p, g_packed, mu, nu, count, *, block_idx, block: int,

@@ -55,6 +55,10 @@ Leases: with ``lease_interval`` every push and pull renews the job's
 lease (on an injectable ``clock``), and ``expire_leases()`` reclaims the
 jobs whose trainers went silent through ``runtime.remove_job``, the
 replan path; their queued futures raise :class:`LeaseExpiredError`.
+
+Under ``torch.profiler`` both engines record their submits, pulls,
+steps and ticks, and the parts of each, as ``repro_torch.*`` spans
+(:mod:`repro_torch.tracing`); without a profiler the spans do nothing.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ import torch
 
 from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
+from ..tracing import span
 from .compression import wire_bytes
 from .faults import (
     HEALTHY,
@@ -358,9 +363,17 @@ def _ef_rounds(gs, compressed, ef_of):
     take the residual in place).  The queued gradients are only read, so
     a replay after a rollback compresses the same pushes again."""
     gs = list(gs)
-    for i, kind, layout, rows in compressed:
-        gs[i] = _ef_round(layout, ef_of(i), gs[i], kind, rows)
+    with span("tick.ef"):
+        for i, kind, layout, rows in compressed:
+            gs[i] = _ef_round(layout, ef_of(i), gs[i], kind, rows)
     return tuple(gs)
+
+
+def _must_force(engine, job_id: str) -> bool:
+    """Whether a step has to tick first: the job is more than
+    ``max_staleness`` pushes ahead, or one of its queues is full."""
+    return engine.outstanding(job_id) > min(engine.max_staleness,
+                                            engine.queue_capacity - 1)
 
 
 class _Leases:
@@ -613,18 +626,19 @@ class ServiceTickEngine(_Leases):
             # live would feed the trainer stale parameters.  Read-tier
             # replicas are the degraded-serving path.
             raise self.quarantine_error
-        self._queue(job_id)  # validates the job id
-        while self.outstanding(job_id) > self.max_staleness:
-            self.stats.n_forced_staleness += 1
-            self.tick()
-        if since_version is not None:
-            return self._pull_versioned(job_id, since_version)
-        layout = self.plan.job_layout(job_id)
-        self.stats.n_full_pulls += 1
-        self.stats.pull_bytes_wire += 4 * layout.packed_len
-        self.stats.pull_bytes_full += 4 * layout.packed_len
-        return _unpack_slots(layout, self._pull_packed(job_id),
-                             self.runtime._jobs[job_id]["abstract"])
+        with span("pull"):
+            self._queue(job_id)  # validates the job id
+            while self.outstanding(job_id) > self.max_staleness:
+                self.stats.n_forced_staleness += 1
+                self.tick()
+            if since_version is not None:
+                return self._pull_versioned(job_id, since_version)
+            layout = self.plan.job_layout(job_id)
+            self.stats.n_full_pulls += 1
+            self.stats.pull_bytes_wire += 4 * layout.packed_len
+            self.stats.pull_bytes_full += 4 * layout.packed_len
+            return _unpack_slots(layout, self._pull_packed(job_id),
+                                 self.runtime._jobs[job_id]["abstract"])
 
     # ----------------------------------------------------- versioned pulls
     def _versions_array(self) -> np.ndarray:
@@ -688,20 +702,24 @@ class ServiceTickEngine(_Leases):
     def submit_push(self, job_id: str, grads) -> PushFuture:
         """Queue a job's gradient tree for the next tick; a full queue
         first forces ticks until a slot frees up."""
-        q = self._queue(job_id)
-        while len(q) >= self.queue_capacity:
-            self.stats.n_forced_capacity += 1
-            self.tick()
-        packed = _pack_slots(self.plan.job_layout(job_id), grads)
-        return self.submit_packed(job_id, packed.to(self.runtime.device))
+        with span("submit"):
+            q = self._force_capacity(job_id)
+            packed = _pack_slots(self.plan.job_layout(job_id), grads)
+            return self._enqueue(q, job_id, packed.to(self.runtime.device))
 
     def submit_packed(self, job_id: str, packed: torch.Tensor) -> PushFuture:
         """Queue an ALREADY-PACKED job-local float32 gradient vector."""
+        with span("submit"):
+            return self._enqueue(self._force_capacity(job_id), job_id,
+                                 packed)
+
+    def _force_capacity(self, job_id: str) -> deque:
+        """The job's queue, after ticks until it has a free slot."""
         q = self._queue(job_id)
         while len(q) >= self.queue_capacity:
             self.stats.n_forced_capacity += 1
             self.tick()
-        return self._enqueue(q, job_id, packed)
+        return q
 
     def _enqueue(self, q: deque, job_id: str, packed) -> PushFuture:
         fut = PushFuture(job_id, self)
@@ -722,22 +740,28 @@ class ServiceTickEngine(_Leases):
         """One engine-mode iteration: pull (staleness-bounded), compute
         loss and gradients, submit the push; ``metrics["future"]`` tracks
         it."""
-        q = self._queue(job_id)
-        while self.outstanding(job_id) > self.max_staleness:
-            self.stats.n_forced_staleness += 1
-            self.tick()
-        while len(q) >= self.queue_capacity:
-            self.stats.n_forced_capacity += 1
-            self.tick()
-        layout = self.plan.job_layout(job_id)
-        info = self.runtime._jobs[job_id]
-        params = _unpack_slots(layout, self._pull_packed(job_id),
-                               info["abstract"])
-        grads, loss = torch.func.grad_and_value(info["loss_fn"])(params,
-                                                                 batch)
-        return {"loss": loss,
-                "future": self._enqueue(q, job_id,
-                                        _pack_slots(layout, grads))}
+        with span("step"):
+            q = self._queue(job_id)
+            if _must_force(self, job_id):
+                with span("step.force"):
+                    while self.outstanding(job_id) > self.max_staleness:
+                        self.stats.n_forced_staleness += 1
+                        self.tick()
+                    self._force_capacity(job_id)
+            layout = self.plan.job_layout(job_id)
+            info = self.runtime._jobs[job_id]
+            with span("step.pull"):
+                params = _unpack_slots(layout, self._pull_packed(job_id),
+                                       info["abstract"])
+            with span("step.grad"):
+                grads, loss = torch.func.grad_and_value(info["loss_fn"])(
+                    params, batch)
+            del params
+            with span("step.pack"):
+                packed = _pack_slots(layout, grads)
+            with span("step.enqueue"):
+                fut = self._enqueue(q, job_id, packed)
+            return {"loss": loss, "future": fut}
 
     # ----------------------------------------------------------------- tick
     def tick(self, only=None) -> int:
@@ -747,37 +771,44 @@ class ServiceTickEngine(_Leases):
         job below that.  Returns the number of jobs applied."""
         if self.health == QUARANTINED:
             raise self.quarantine_error
-        pending = [j for j in self.runtime._jobs
-                   if self._queues.get(j) and (only is None or j in only)]
-        if not pending:
-            return 0
-        # Epoch fence: a push packed under another plan epoch must never
-        # reach the apply.
-        for j in pending:
-            if self._queues[j][0][2] != self._epoch:
-                raise RuntimeError(
-                    f"epoch fence: job {j!r} queued a push under plan "
-                    f"epoch {self._queues[j][0][2]} but the engine is at "
-                    f"{self._epoch}; a replan migrated this job's layout "
-                    f"without draining its queue")
-        if 1 < len(pending) < self.min_batch_jobs:
-            groups = [(j,) for j in pending]
-            self.stats.n_per_job_dispatch += 1
-        else:
-            groups = [tuple(pending)]
+        with span("tick"):
+            return self._tick(only)
+
+    def _tick(self, only) -> int:
+        with span("tick.select"):
+            pending = [j for j in self.runtime._jobs
+                       if self._queues.get(j) and (only is None or j in only)]
+            if not pending:
+                return 0
+            # Epoch fence: a push packed under another plan epoch must
+            # never reach the apply.
+            for j in pending:
+                if self._queues[j][0][2] != self._epoch:
+                    raise RuntimeError(
+                        f"epoch fence: job {j!r} queued a push under plan "
+                        f"epoch {self._queues[j][0][2]} but the engine is "
+                        f"at {self._epoch}; a replan migrated this job's "
+                        f"layout without draining its queue")
+            if 1 < len(pending) < self.min_batch_jobs:
+                groups = [(j,) for j in pending]
+                self.stats.n_per_job_dispatch += 1
+            else:
+                groups = [tuple(pending)]
         # Refresh the snapshot BEFORE any in-place apply.
         snapped = self._maybe_snapshot()
         if self._replica_hub is not None:
             # Publish point for the read tier, at the rollback snapshot:
             # on a refresh tick the hub publishes the clone just taken.
-            self._replica_hub.on_tick(None, snapped)
+            with span("tick.publish"):
+                self._replica_hub.on_tick(None, snapped)
         applied = 0
         for key in groups:
             heads = [self._queues[j].popleft() for j in key]
             try:
                 applier = self._appliers.get(key)
                 if applier is None:
-                    applier = self._build_applier(key)
+                    with span("tick.build"):
+                        applier = self._build_applier(key)
                     if len(self._appliers) >= self.MAX_APPLIERS:
                         self._appliers.pop(next(iter(self._appliers)))
                     self._appliers[key] = applier
@@ -802,11 +833,12 @@ class ServiceTickEngine(_Leases):
                 self.stats.n_ticks += 1
                 return 0
             self._failures = 0
-            for j, (packed, fut, _) in zip(key, heads):
-                self._counts[j] += 1
-                if fut is not None:
-                    fut._resolve(self._counts[j])
-                self._snapshot_log.append((j, packed, fut))
+            with span("tick.commit"):
+                for j, (packed, fut, _) in zip(key, heads):
+                    self._counts[j] += 1
+                    if fut is not None:
+                        fut._resolve(self._counts[j])
+                    self._snapshot_log.append((j, packed, fut))
             applied += len(key)
         self._stamp_blocks(pending)  # diff-pull clients see these as dirty
         self.stats.n_ticks += 1
@@ -825,8 +857,9 @@ class ServiceTickEngine(_Leases):
             return False
         if (self._snapshot is None
                 or self._ticks_since_snapshot >= self.snapshot_interval):
-            self._snapshot = (_copy_state(self.runtime.state),
-                              dict(self._counts))
+            with span("tick.snapshot"):
+                self._snapshot = (_copy_state(self.runtime.state),
+                                  dict(self._counts))
             self._snapshot_log = []
             self._ticks_since_snapshot = 0
             self.stats.n_snapshots += 1
@@ -1152,13 +1185,14 @@ class ShardedTickEngine(_Leases):
             lane = self._lanes.get(sid)
             if lane is not None and lane.health == QUARANTINED:
                 raise lane.quarantine_error
-        self._force_staleness(job_id)
-        if since_version is not None:
-            return self._pull_versioned(job_id, layout, since_version)
-        self.stats.n_full_pulls += 1
-        self.stats.pull_bytes_wire += 4 * layout.packed_len
-        self.stats.pull_bytes_full += 4 * layout.packed_len
-        return self._params(job_id, layout)
+        with span("pull"):
+            self._force_staleness(job_id)
+            if since_version is not None:
+                return self._pull_versioned(job_id, layout, since_version)
+            self.stats.n_full_pulls += 1
+            self.stats.pull_bytes_wire += 4 * layout.packed_len
+            self.stats.pull_bytes_full += 4 * layout.packed_len
+            return self._params(job_id, layout)
 
     def _params(self, job_id: str, layout):
         """The job's parameter tree, gathered from its hosting shards into
@@ -1279,36 +1313,48 @@ class ShardedTickEngine(_Leases):
     def submit_push(self, job_id: str, grads) -> PushFuture:
         """Queue a job's gradient tree: one packed piece per hosting
         shard, applied by each shard's own ticks."""
-        layout = self._layout(job_id)
-        self._force_capacity(job_id, layout)
-        packed = _pack_slots(layout, grads).to(self.runtime.device)
-        return self._enqueue(job_id, layout, _split_pieces(layout, packed))
+        with span("submit"):
+            layout = self._layout(job_id)
+            self._force_capacity(job_id, layout)
+            packed = _pack_slots(layout, grads).to(self.runtime.device)
+            return self._enqueue(job_id, layout,
+                                 _split_pieces(layout, packed))
 
     def submit_packed(self, job_id: str, packed: torch.Tensor) -> PushFuture:
         """Queue an ALREADY-PACKED float32 gradient over the job's
         combined packed layout (its hosting shards' pieces in shard
         order)."""
-        layout = self._layout(job_id)
-        if tuple(packed.shape) != (layout.packed_len,):
-            raise ValueError(f"packed gradient of {job_id!r} must be "
-                             f"({layout.packed_len},), got "
-                             f"{tuple(packed.shape)}")
-        self._force_capacity(job_id, layout)
-        return self._enqueue(job_id, layout, _split_pieces(layout, packed))
+        with span("submit"):
+            layout = self._layout(job_id)
+            if tuple(packed.shape) != (layout.packed_len,):
+                raise ValueError(f"packed gradient of {job_id!r} must be "
+                                 f"({layout.packed_len},), got "
+                                 f"{tuple(packed.shape)}")
+            self._force_capacity(job_id, layout)
+            return self._enqueue(job_id, layout,
+                                 _split_pieces(layout, packed))
 
     def step(self, job_id: str, batch) -> Dict[str, Any]:
         """One engine-mode iteration: staleness-bounded pull, loss and
         gradients, one queued piece per hosting shard."""
-        layout = self._layout(job_id)
-        self._force_staleness(job_id)
-        self._force_capacity(job_id, layout)
-        loss_fn = self.runtime._jobs[job_id]["loss_fn"]
-        grads, loss = torch.func.grad_and_value(loss_fn)(
-            self._params(job_id, layout), batch)
-        g = _pack_slots(layout, grads)
-        return {"loss": loss,
-                "future": self._enqueue(job_id, layout,
-                                        _split_pieces(layout, g))}
+        with span("step"):
+            layout = self._layout(job_id)
+            if _must_force(self, job_id):
+                with span("step.force"):
+                    self._force_staleness(job_id)
+                    self._force_capacity(job_id, layout)
+            loss_fn = self.runtime._jobs[job_id]["loss_fn"]
+            with span("step.pull"):
+                params = self._params(job_id, layout)
+            with span("step.grad"):
+                grads, loss = torch.func.grad_and_value(loss_fn)(params,
+                                                                 batch)
+            del params
+            with span("step.pack"):
+                pieces = _split_pieces(layout, _pack_slots(layout, grads))
+            with span("step.enqueue"):
+                fut = self._enqueue(job_id, layout, pieces)
+            return {"loss": loss, "future": fut}
 
     # ----------------------------------------------------------------- tick
     def _check_fence(self, sid: str, lane: _ShardLane, jobs) -> None:
@@ -1346,27 +1392,34 @@ class ShardedTickEngine(_Leases):
         lane = self._lanes.get(shard_id)
         if lane is None or lane.health == QUARANTINED:
             return 0
-        pending = [j for j in self.runtime._jobs
-                   if lane.queues.get(j) and (only is None or j in only)]
-        if not pending:
-            return 0
-        self._check_fence(shard_id, lane, pending)
-        if 1 < len(pending) < self.min_batch_jobs:
-            groups = [(j,) for j in pending]
-            lane.stats.n_per_job_dispatch += 1
-        else:
-            groups = [tuple(pending)]
+        with span("tick"):
+            return self._tick_shard(shard_id, lane, only)
+
+    def _tick_shard(self, shard_id: str, lane: _ShardLane, only) -> int:
+        with span("tick.select"):
+            pending = [j for j in self.runtime._jobs
+                       if lane.queues.get(j) and (only is None or j in only)]
+            if not pending:
+                return 0
+            self._check_fence(shard_id, lane, pending)
+            if 1 < len(pending) < self.min_batch_jobs:
+                groups = [(j,) for j in pending]
+                lane.stats.n_per_job_dispatch += 1
+            else:
+                groups = [tuple(pending)]
         snapped = self._maybe_snapshot_lane(lane)
         if self._replica_hub is not None:
             # Read-tier publish point, at the rollback snapshot: a refresh
             # tick's clone is published, not taken again.
-            self._replica_hub.on_tick(shard_id, snapped)
+            with span("tick.publish"):
+                self._replica_hub.on_tick(shard_id, snapped)
         for key in groups:
             heads = [lane.queues[j].popleft() for j in key]
             try:
                 applier = lane.appliers.get(key)
                 if applier is None:
-                    applier = self._build_applier(shard_id, key)
+                    with span("tick.build"):
+                        applier = self._build_applier(shard_id, key)
                     if len(lane.appliers) >= self.MAX_APPLIERS:
                         lane.appliers.pop(next(iter(lane.appliers)))
                     lane.appliers[key] = applier
@@ -1392,7 +1445,8 @@ class ShardedTickEngine(_Leases):
                 lane.stats.n_ticks += 1
                 self.stats.n_ticks += 1
                 return 0
-            self._applied(lane, key, heads)
+            with span("tick.commit"):
+                self._applied(lane, key, heads)
         self._lane_ticked(lane, pending)
         lane.stats.n_launches += len(groups)
         self.stats.n_ticks += 1
@@ -1411,8 +1465,10 @@ class ShardedTickEngine(_Leases):
             return False
         if (lane.snapshot is None
                 or lane.ticks_since_snapshot >= self.snapshot_interval):
-            lane.snapshot = None  # free the old clone before taking one
-            lane.snapshot = _copy_state(self.runtime.states[lane.shard_id])
+            with span("tick.snapshot"):
+                lane.snapshot = None  # free the old clone before taking one
+                lane.snapshot = _copy_state(
+                    self.runtime.states[lane.shard_id])
             lane.log = []
             lane.ticks_since_snapshot = 0
             lane.stats.n_snapshots += 1
@@ -1498,33 +1554,42 @@ class ShardedTickEngine(_Leases):
         plan = self.plan
         if plan is None:
             return 0
-        entries = []
-        for sid in plan.shard_ids:
-            lane = self._lanes.get(sid)
-            if lane is None or lane.health == QUARANTINED:
-                continue
-            pending = tuple(
-                j for j in self.runtime._jobs
-                if lane.queues.get(j) and (only is None or j in only))
-            if pending:
-                self._check_fence(sid, lane, pending)
-                entries.append((sid, pending))
-        if not entries:
-            return 0
-        key = tuple(entries)
-        # Build before popping: a build failure leaves every queue whole.
-        applier = self._fleet_appliers.get(key)
-        if applier is None:
-            applier = self._build_fleet_applier(key)
-            if len(self._fleet_appliers) >= self.MAX_APPLIERS:
-                self._fleet_appliers.pop(next(iter(self._fleet_appliers)))
-            self._fleet_appliers[key] = applier
+        with span("tick"):
+            return self._tick_fleet(plan, only)
+
+    def _tick_fleet(self, plan, only) -> int:
+        with span("tick.select"):
+            entries = []
+            for sid in plan.shard_ids:
+                lane = self._lanes.get(sid)
+                if lane is None or lane.health == QUARANTINED:
+                    continue
+                pending = tuple(
+                    j for j in self.runtime._jobs
+                    if lane.queues.get(j) and (only is None or j in only))
+                if pending:
+                    self._check_fence(sid, lane, pending)
+                    entries.append((sid, pending))
+            if not entries:
+                return 0
+            key = tuple(entries)
+            # Build before popping: a build failure leaves every queue
+            # whole.
+            applier = self._fleet_appliers.get(key)
+            if applier is None:
+                with span("tick.build"):
+                    applier = self._build_fleet_applier(key)
+                if len(self._fleet_appliers) >= self.MAX_APPLIERS:
+                    self._fleet_appliers.pop(
+                        next(iter(self._fleet_appliers)))
+                self._fleet_appliers[key] = applier
         # Snapshot the participants with their queues whole, so each
         # lane's (snapshot, log) anchors a rollback of this very launch.
         for sid, _ in key:
             snapped = self._maybe_snapshot_lane(self._lanes[sid])
             if self._replica_hub is not None:
-                self._replica_hub.on_tick(sid, snapped)
+                with span("tick.publish"):
+                    self._replica_hub.on_tick(sid, snapped)
         popped = [(sid, jobs, [self._lanes[sid].queues[j].popleft()
                                for j in jobs]) for sid, jobs in key]
         heads = [h for _, _, hs in popped for h in hs]
@@ -1549,10 +1614,11 @@ class ShardedTickEngine(_Leases):
             for sid, _ in key:
                 self._rollback_lane(self._lanes[sid])
             return sum(self.tick_shard(sid) for sid, _ in key)
-        for sid, jobs, hs in popped:
-            self._applied(self._lanes[sid], jobs, hs)
-        for sid, jobs in key:
-            self._lane_ticked(self._lanes[sid], jobs)
+        with span("tick.commit"):
+            for sid, jobs, hs in popped:
+                self._applied(self._lanes[sid], jobs, hs)
+            for sid, jobs in key:
+                self._lane_ticked(self._lanes[sid], jobs)
         self.stats.n_ticks += 1
         self.stats.n_applied += len(heads)
         self.stats.n_launches += 1  # ONE launch for the whole fleet

@@ -34,7 +34,10 @@ engines' error-feedback path: the state gains an ``ef`` buffer (on the
 sharded fleet a fourth arena leaf) that migrates, snapshots and
 checkpoints with flat/mu/nu.
 
-Both runtimes run on the card unless given ``device="cpu"``.
+Both runtimes run on the card unless given ``device="cpu"``.  The
+sharded runtime times every replan's phases on the host into
+``replan_s`` (shown by ``debug_stats()``) and, under ``torch.profiler``,
+records ``add_job`` and ``replan`` spans (:mod:`repro_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.agg_adam import ops as agg_ops
+from ..tracing import span, timed
 from .elastic import (
     LEAVES,
     compile_migration_delta,
@@ -342,6 +346,10 @@ class RecoveryReport:
     moved_tasks: int
 
 
+# The phases of a sharded replan, each timed into ``replan_s``.
+REPLAN_PHASES = ("compile", "alloc", "migrate", "steps", "engine")
+
+
 def _needs_ef(jobs) -> bool:
     """Whether any job pushes compressed gradients (its state then needs
     the error-feedback buffer ``ef``)."""
@@ -442,6 +450,8 @@ class ShardedServiceRuntime:
         self.total_relayout_bytes = 0
         self.last_replan_touched: tuple = ()
         self.n_replans = 0
+        # Host seconds of every replan (first layouts included), by phase.
+        self.replan_s = dict.fromkeys(REPLAN_PHASES, 0.0)
         self._jobs: Dict[str, Dict[str, Any]] = {}
         self._steps: Dict[str, Tuple[Tuple[str, ...], Callable]] = {}
         self._engine = None
@@ -475,14 +485,16 @@ class ShardedServiceRuntime:
         return self._engine
 
     def debug_stats(self) -> Dict[str, Any]:
-        """:func:`_debug_stats` plus the shard count and every lane's
-        TickStats and health."""
+        """:func:`_debug_stats` plus the shard count, the replans' host
+        seconds by phase (``replan_s``) and every lane's TickStats and
+        health."""
+        extra = {"n_shards": self.n_shards, "replan_s": dict(self.replan_s)}
         eng = self._engine
         if eng is None:
-            return _debug_stats(self, {"n_shards": self.n_shards}, shards={})
+            return _debug_stats(self, extra, shards={})
         health = eng.shard_health()
         return _debug_stats(
-            self, {"n_shards": self.n_shards},
+            self, extra,
             shards={sid: {**dataclasses.asdict(st), "health": health[sid]}
                     for sid, st in eng.shard_stats().items()})
 
@@ -509,22 +521,26 @@ class ShardedServiceRuntime:
         the error-feedback path, and the fleet gains the ``ef`` leaf."""
         if job_id in self._jobs:
             raise ValueError(f"job {job_id} already in the runtime")
-        profile, specs = job_profile_from_tree(
-            job_id, params,
-            iteration_duration=iteration_duration,
-            n_workers=n_workers,
-            required_servers=required_servers,
-            agg_throughput=agg_throughput,
-        )
-        self._jobs[job_id] = dict(
-            loss_fn=loss_fn, abstract=abstract_tree(params),
-            lr=lr, b1=b1, b2=b2, eps=eps, step_opts=step_opts)
-        try:
-            self.service.register_job(profile, specs=specs)
-        except Exception:
-            self._jobs.pop(job_id, None)
-            raise
-        self._seed_job(job_id, tree_map(lambda t: t.to(self.device), params))
+        with span("add_job"):
+            profile, specs = job_profile_from_tree(
+                job_id, params,
+                iteration_duration=iteration_duration,
+                n_workers=n_workers,
+                required_servers=required_servers,
+                agg_throughput=agg_throughput,
+            )
+            self._jobs[job_id] = dict(
+                loss_fn=loss_fn, abstract=abstract_tree(params),
+                lr=lr, b1=b1, b2=b2, eps=eps, step_opts=step_opts)
+            with span("add_job.register"):
+                try:
+                    self.service.register_job(profile, specs=specs)
+                except Exception:
+                    self._jobs.pop(job_id, None)
+                    raise
+            with span("add_job.seed"):
+                self._seed_job(job_id, tree_map(lambda t: t.to(self.device),
+                                                params))
 
     def remove_job(self, job_id: str) -> None:
         """Job exit: its segments leave every hosting shard.  The job's
@@ -721,16 +737,26 @@ class ShardedServiceRuntime:
             self.states[sid]["ef"] = views["ef"]
 
     def _on_replan(self, old_flat, new_flat):
+        """The service's replan listener: move the fleet onto the new
+        sharded plan.  Each phase's host seconds add to ``replan_s``."""
+        with span("replan"):
+            self._replan(old_flat, new_flat)
+
+    def _replan(self, old_flat, new_flat):
         engine = self._engine
+        phase = self.replan_s
         if new_flat is None:  # last job exited
             if engine is not None and self.states:
-                engine.drain()
+                with timed("replan.migrate", phase):
+                    engine.drain()
             self.splan, self.arena, self.states = None, None, {}
             self._steps, self.counts = {}, {}
             if engine is not None:
-                engine._on_plan_change(None)
+                with timed("replan.engine", phase):
+                    engine._on_plan_change(None)
             return
-        new = self.service.compile_sharded_plan()
+        with timed("replan.compile", phase):
+            new = self.service.compile_sharded_plan()
         old = self.splan
         # Everything up to the COMMIT below is computed into locals, and
         # the migration only reads the old states, so a failure leaves
@@ -739,39 +765,43 @@ class ShardedServiceRuntime:
         touched = None  # None: every job's layout may have changed
         moved_elems = 0
         migrated = old is not None and bool(self.states)
-        # ef joins the arena with the first compressed job and stays, as
-        # the reference's per-shard ef buffers do.
-        leaves = (LEAVES + ("ef",) if _needs_ef(self._jobs) or (
-            self.arena is not None and "ef" in self.arena) else LEAVES)
-        arena, fresh = _init_shard_state(new, self.device, leaves)
-        if migrated:
-            _, touched_pre = sharded_transition_summary(old, new)
-            if engine is not None:
-                engine.quiesce_for_replan(
-                    [j for j in touched_pre if j in self._jobs])
-            states, moved_elems, touched_exec = migrate_sharded_state(
-                self.states, old, new, out=fresh,
-                fault_injector=(engine.fault_injector
-                                if engine is not None else None))
-            touched = set(touched_exec)
-        else:
-            if engine is not None and self.states:
-                engine.drain()
-            states = fresh
+        with timed("replan.alloc", phase):
+            # ef joins the arena with the first compressed job and stays,
+            # as the reference's per-shard ef buffers do.
+            leaves = (LEAVES + ("ef",) if _needs_ef(self._jobs) or (
+                self.arena is not None and "ef" in self.arena) else LEAVES)
+            arena, fresh = _init_shard_state(new, self.device, leaves)
+        with timed("replan.migrate", phase):
+            if migrated:
+                _, touched_pre = sharded_transition_summary(old, new)
+                if engine is not None:
+                    engine.quiesce_for_replan(
+                        [j for j in touched_pre if j in self._jobs])
+                states, moved_elems, touched_exec = migrate_sharded_state(
+                    self.states, old, new, out=fresh,
+                    fault_injector=(engine.fault_injector
+                                    if engine is not None else None))
+                touched = set(touched_exec)
+            else:
+                if engine is not None and self.states:
+                    engine.drain()
+                states = fresh
         steps: Dict[str, Tuple[Tuple[str, ...], Callable]] = {}
-        for job_id, info in self._jobs.items():
-            # An untouched job's layout is the same on every hosting
-            # shard: keep its step.
-            if (touched is not None and job_id not in touched
-                    and job_id in self._steps):
-                steps[job_id] = self._steps[job_id]
-                continue
-            layout = new.job_layout(job_id)
-            steps[job_id] = (layout.shard_ids, _make_sharded_step(
-                info["loss_fn"], layout, info["abstract"], lr=info["lr"],
-                b1=info["b1"], b2=info["b2"], eps=info["eps"],
-                device=self.device,
-                push_compression=info["step_opts"].get("push_compression")))
+        with timed("replan.steps", phase):
+            for job_id, info in self._jobs.items():
+                # An untouched job's layout is the same on every hosting
+                # shard: keep its step.
+                if (touched is not None and job_id not in touched
+                        and job_id in self._steps):
+                    steps[job_id] = self._steps[job_id]
+                    continue
+                layout = new.job_layout(job_id)
+                steps[job_id] = (layout.shard_ids, _make_sharded_step(
+                    info["loss_fn"], layout, info["abstract"], lr=info["lr"],
+                    b1=info["b1"], b2=info["b2"], eps=info["eps"],
+                    device=self.device,
+                    push_compression=info["step_opts"].get(
+                        "push_compression")))
         # ---- COMMIT: the new layout becomes visible as a unit ----
         self.arena, self.states = arena, states
         if migrated:
@@ -785,5 +815,6 @@ class ShardedServiceRuntime:
                 self.total_migration_bytes += moved
         self.splan = new
         if engine is not None:
-            engine._on_plan_change(touched)
+            with timed("replan.engine", phase):
+                engine._on_plan_change(touched)
         self._steps = steps
