@@ -59,10 +59,14 @@ the paper workloads' full tensor inventories:
      BERT-base ``"bf16"`` on 2 shards (the fleet arena gains a fourth
      leaf, ``ef``), the engine with a lease interval on a manual clock;
      q1, 4 fused fleet ticks, each one launch of the multi-job Adam
-     kernel after the error-feedback rounds of the compressed pieces, the
-     last held bit for bit against the per-shard appliers on a clone of
-     the arena (ef included); each job's push alone must cost at most half
-     of fp32 on the wire (int8), half (bf16) or all of it (plain);
+     kernel after the error-feedback rounds of the compressed pieces (one
+     ``ef_round`` kernel launch a piece), the last held bit for bit
+     against the per-shard appliers on a clone of the arena (ef
+     included); each job's push alone must cost at most half of fp32 on
+     the wire (int8), half (bf16) or all of it (plain); each compressed
+     job's round timed through the kernel and the eager passes beside its
+     bound (16 B a lane), and both held bit for bit against the CPU's
+     ``ef_transform`` on its first piece;
      AWD-LM arrives with int8 through a sharded replan (the relayout
      kernels moving four leaves), held against the gather oracle on
      flat/mu/nu/ef; a ``fail_apply`` inside a fused tick, the drained arena
@@ -975,24 +979,27 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False,
     """``n`` rounds: every resident job pushes one seeded packed gradient
     (one piece per hosting shard), then ONE fleet tick, timed on the host
     clock to a synchronize.  Each tick must apply every piece and add
-    exactly one to ``TickStats.n_launches`` and to K1's counter.  With
-    ``oracle_last`` the last tick is held against the per-shard oracle on
-    a clone of the arena, bit for bit.  Returns (tick ms, the host's share
-    of each: ms until ``tick()`` returns, before the synchronize; the
-    caching allocator's new device allocations (``cudaMalloc``s) in each;
-    the oracle's K1 launches)."""
-    k1 = wrappers["agg_adam_multijob_fused"]
+    exactly one to ``TickStats.n_launches`` and to K1's counter, and one
+    to the ``ef_round`` kernel's a compressed piece (:func:`ef_pieces`).
+    With ``oracle_last`` the last tick is held against the per-shard
+    oracle on a clone of the arena, bit for bit.  Returns (tick ms, the
+    host's share of each: ms until ``tick()`` returns, before the
+    synchronize; the caching allocator's new device allocations
+    (``cudaMalloc``s) in each; the oracle's K1 launches)."""
+    k1, k8 = wrappers["agg_adam_multijob_fused"], wrappers["ef_round"]
     times, enqueue, mallocs, oracle = [], [], [], 0
     for i in range(n):
         s.push_all()
         pieces = sum(len(s.plan.job_layout(j).shard_ids)
                      for j in s.rt.job_ids)
+        compressed = ef_pieces(s)
         clone = heads = None
         if oracle_last and i == n - 1:
             clone = {k: v.clone() for k, v in s.rt.arena.items()}
             heads = fleet_heads(s)
         sync(s.device)
-        launches0, k1_0 = s.eng.stats.n_launches, k1.launches
+        launches0, k1_0, k8_0 = (s.eng.stats.n_launches, k1.launches,
+                                 k8.launches)
         allocs0 = device_allocs(s.device)
         t0 = time.perf_counter()
         applied = s.eng.tick()
@@ -1005,6 +1012,10 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False,
                 f"{phase}: a fleet tick made {k1.launches - k1_0} K1 "
                 f"launches and {s.eng.stats.n_launches - launches0} "
                 f"engine launches (want 1 and 1)")
+        if k8.launches - k8_0 != compressed:
+            raise AssertionError(
+                f"{phase}: a fleet tick made {k8.launches - k8_0} ef_round "
+                f"launches for {compressed} compressed pieces")
         if applied != pieces:
             raise AssertionError(f"{phase}: a fleet tick applied {applied} "
                                  f"of {pieces} pieces")
@@ -1020,6 +1031,13 @@ def fleet_ticks(s: Service, n: int, wrappers, oracle_last: bool = False,
                         f"{max_abs(v, s.rt.arena[k])})")
             del clone, heads
     return times, enqueue, mallocs, oracle
+
+
+def ef_pieces(s: Service) -> int:
+    """The compressed pieces of a fleet tick with every job pushing: one
+    error-feedback round, so one ``ef_round`` launch, each."""
+    return sum(len(s.plan.job_layout(j).shard_ids) for j in s.rt.job_ids
+               if s.rt._jobs[j]["step_opts"].get("push_compression"))
 
 
 def sharded_transition(s: Service, what: str, fn, wrappers, drain=True,
@@ -1546,6 +1564,7 @@ def read_phase(s: Service, wrappers):
 Q_PEAK_GB = 50.0  # phase q's budget of device memory at peak
 Q_COMPRESSION = {"vgg19": "int8", "bert": "bf16", "awd-lm": "int8"}
 Q_LEASE_S = 2.0  # the engine's lease interval on phase q's manual clock
+Q_EF_ENTRY_JOB = "vgg19"  # the ef_round kernel's entry in the report
 Q_CKPT_DIR = ROOT / "build" / "phase_q_ckpt"  # git-ignored; removed after
 
 
@@ -1560,51 +1579,83 @@ class ManualClock:
         return self.now
 
 
+EF_BYTES_PER_LANE = 16  # an EF round reads g and ef, writes q and ef
+
+
 def ef_round_ms(s: Service, job: str):
-    """Device ms of one job's error-feedback rounds (``_ef_round`` on each
-    of its pieces: gather, add, quantize, dequantize, residual, scatter)
-    on a seeded gradient and a clone of each hosting shard's ``ef``,
-    CUDA events around back-to-back calls; summed over its pieces."""
+    """Device ms of one job's error-feedback rounds, summed over its
+    pieces: through the kernel (``_ef_round``, one ``ef_round`` launch a
+    piece) and through the eager round it replaced (``ef_round_plain``:
+    gather, ``ef_transform``, scatter, on the same CUDA tensors), each on a
+    seeded gradient and a clone of each hosting shard's ``ef``, CUDA
+    events around back-to-back calls.  Returns (kernel ms, eager ms, bound
+    ms at 16 B a lane, lanes)."""
+    from repro_torch.kernels.ef_round.ref import ef_round_plain
     from repro_torch.ps.runtime import _ef_round, _rows, _split_pieces
 
     layout = s.plan.job_layout(job)
     kind = s.rt._jobs[job]["step_opts"]["push_compression"]
-    total = 0.0
+    kernel = eager = 0.0
+    lanes = 0
     for sid, l, g in zip(layout.shard_ids, layout.layouts,
                          _split_pieces(layout, s.grad(job))):
         ef = s.rt.states[sid]["ef"].clone()
         rows = None if l.covers_all else _rows(l, s.device)
-        total += time_ms(lambda: _ef_round(l, ef, g, kind, rows), s.device,
-                         reps=5, warmup=2, inner=3)
+        kernel += time_ms(lambda: _ef_round(l, ef, g, kind, rows), s.device,
+                          reps=5, warmup=2, inner=3)
+        eager += time_ms(lambda: ef_round_plain(g, ef, kind, rows, l.block),
+                         s.device, reps=5, warmup=2, inner=3)
+        lanes += g.numel()
         del ef
-    return total
+    return (kernel, eager, EF_BYTES_PER_LANE * lanes / HBM_BYTES_PER_S * 1e3,
+            lanes)
 
 
 def ef_card_vs_cpu(s: Service, job: str):
-    """The card's ``ef_transform`` held against the CPU's, bit for bit, on
-    the job's first piece: a seeded gradient and the live gathered rows of
-    its hosting shard's ``ef`` (nonzero after the ticks), copied to the
-    CPU, where the tests hold ``ef_transform`` bit for bit against the
+    """The job's error-feedback round on its first piece held against the
+    CPU's ``ef_transform`` bit for bit, on a seeded gradient and the live
+    owned rows of its hosting shard's ``ef`` (nonzero after the ticks):
+    the card's eager ``ef_transform`` on the gathered rows, and the
+    kernel's round (``_ef_round``) on a clone of the shard's ``ef``, whose
+    owned rows must then hold the CPU's residual and whose other rows must
+    be unchanged.  The tests hold ``ef_transform`` bit for bit against the
     reference's eager round.  Returns (lanes compared, the rows' max
     abs)."""
     from repro_torch.ps.compression import ef_transform
-    from repro_torch.ps.runtime import _rows, _split_pieces
+    from repro_torch.ps.runtime import _ef_round, _rows, _split_pieces
 
     layout = s.plan.job_layout(job)
     kind = s.rt._jobs[job]["step_opts"]["push_compression"]
     sid, l = layout.shard_ids[0], layout.layouts[0]
     g = _split_pieces(layout, s.grad(job))[0]
     ef = s.rt.states[sid]["ef"]
-    rows = (ef if l.covers_all else
-            ef.view(-1, l.block)[_rows(l, s.device)].reshape(-1))
+    r = None if l.covers_all else _rows(l, s.device)
+
+    def owned(buf):
+        return buf if r is None else buf.view(-1, l.block)[r].reshape(-1)
+
+    rows = owned(ef)
     q, resid = ef_transform(g, rows, kind)
     q_cpu, resid_cpu = ef_transform(g.cpu(), rows.cpu(), kind)
-    for what, card, cpu in (("q", q, q_cpu), ("residual", resid, resid_cpu)):
+    ef_k = ef.clone()
+    q_k = _ef_round(l, ef_k, g, kind, r)
+    for what, card, cpu in (("eager q", q, q_cpu),
+                            ("eager residual", resid, resid_cpu),
+                            ("kernel q", q_k, q_cpu),
+                            ("kernel residual", owned(ef_k), resid_cpu)):
         if not bits_equal(card.cpu(), cpu):
             raise AssertionError(
-                f"phase q q1: the card's ef_transform ({job}, {kind}) "
-                f"differs from the CPU's in {what} (max abs "
+                f"phase q q1: the card's {what} ({job}, {kind}) differs "
+                f"from the CPU's ef_transform (max abs "
                 f"{max_abs(card.cpu(), cpu)})")
+    if r is not None:
+        other = torch.ones(ef.numel() // l.block, dtype=torch.bool,
+                           device=s.device)
+        other[r] = False
+        if not bits_equal(ef_k.view(-1, l.block)[other],
+                          ef.view(-1, l.block)[other]):
+            raise AssertionError(f"phase q q1: the kernel's round of {job} "
+                                 f"wrote rows of {sid}'s ef it does not own")
     peak = float(rows.abs().max())
     if not peak > 0:
         raise AssertionError(f"phase q q1: {job}'s ef rows on {sid} are all "
@@ -1633,7 +1684,9 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
     into the live runtime: the arena equals the clone taken at the save
     bit for bit, every lane a view; one more fused tick equals that tick
     run on the clone by the per-shard appliers.  Returns the phase's
-    launch counts (the oracle's K1 launches taken out) and the service."""
+    launch counts (the oracle's K1 launches taken out; ``ef_round``'s in
+    the checked fused fleet ticks alone), the service and the report's
+    entry for the ``ef_round`` kernel (VGG19's int8 piece)."""
     from repro_torch.ps import elastic
     from repro_torch.ps.faults import LeaseExpiredError
 
@@ -1662,6 +1715,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
           flush=True)
 
     # ---- q1: compressed pushes through fused fleet ticks
+    main_k8 = 4 * ef_pieces(s)  # fleet_ticks checks each tick's launches
     times, enqueue, mallocs, oracle = fleet_ticks(
         s, 4, wrappers, oracle_last=True, phase="phase q q1")
     single = {}
@@ -1684,6 +1738,13 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
     ef_ms = {j: ef_round_ms(s, j) for j in s.rt.job_ids
              if Q_COMPRESSION.get(j)}
     ef_cpu = {j: ef_card_vs_cpu(s, j) for j in ef_ms}
+    ef_line = {j: (round(k, 3), round(e, 3), round(b, 3),
+                   f"{100 * b / k:.1f}%") for j, (k, e, b, _) in ef_ms.items()}
+    k, e, b, lanes = ef_ms[Q_EF_ENTRY_JOB]
+    ef_entry = dict(  # held bit for bit against the CPU by ef_card_vs_cpu
+        shape=f"{Q_EF_ENTRY_JOB} {Q_COMPRESSION[Q_EF_ENTRY_JOB]}, {lanes} "
+        f"lanes", ms=k, plain_ms=e, bound_ms=b, bound_by="bytes",
+        library_ms=None, max_abs_err=0.0, max_ulp=0)
     print(f"phase q q1 (3 jobs, 2 compressed): fleet ticks ms="
           f"{[round(t, 3) for t in times]} median="
           f"{statistics.median(times):.3f} (phase s, the same jobs "
@@ -1693,9 +1754,10 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
           f"per_shard_k1_launches={oracle}; one job a tick: "
           f"{ {j: (round(ms, 3), round(r, 4)) for j, (ms, r) in single.items()} }"
           f" (median ms of the 2nd and 3rd tick, wire/fp32 bytes); "
-          f"ef_round_ms="
-          f"{ {j: round(v, 3) for j, v in ef_ms.items()} } ef_transform "
-          f"card=cpu bit_for_bit on (lanes, ef max abs) "
+          f"ef_round (kernel ms, eager ms, bound ms at 16 B a lane, "
+          f"kernel's share of the bound)={ef_line} "
+          f"ef round card=cpu bit_for_bit (kernel and eager) on (lanes, "
+          f"ef max abs) "
           f"{ {j: (n, f'{m:.3e}') for j, (n, m) in ef_cpu.items()} } peak_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
@@ -1706,6 +1768,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
         raise AssertionError(f"phase q arrival: K2 launches {k2}, arena "
                              f"{sorted(s.rt.arena)}")
     lane_views_ok(s.rt, "phase q")
+    main_k8 += 2 * ef_pieces(s)
     times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q1")
     print(f"phase q q1 (AWD-LM arrives, int8): replan_s={replan_s:.2f} "
           f"shards={s.rt.n_shards} moved_elements={moved} touched="
@@ -1764,6 +1827,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
         raise AssertionError(f"phase q q2: K2 launches {k2}; surviving "
                              f"shards with moved blocks: {relaid}")
     lane_views_ok(s.rt, "phase q")
+    main_k8 += 2 * ef_pieces(s)
     times, _, _, _ = fleet_ticks(s, 2, wrappers, phase="phase q q2")
     print(f"phase q q2 (lease {Q_LEASE_S} s on a manual clock; {silent} "
           f"silent with a push queued): expired={list(expired)} "
@@ -1833,6 +1897,9 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
 
     counts = read_counters(wrappers)
     counts["agg_adam_multijob_fused"] -= oracle
+    # the kernel's launches in the checked fused fleet ticks alone (the
+    # timing, the parity checks and the oracles launch it too)
+    counts["ef_round"] = main_k8
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb > Q_PEAK_GB:
         raise AssertionError(f"phase q: {peak_gb:.2f} GB at peak, over its "
@@ -1843,7 +1910,7 @@ def compressed_phase(device, wrappers, scale, s_tick_ms):
           f"{time.perf_counter() - t_phase:.1f} host_maxrss_gb="
           f"{host_rss_gb():.2f}", flush=True)
     elastic.clear_plan_cache()
-    return counts, s
+    return counts, s, ef_entry
 
 
 # ------------------------------ phase t: the chaos trace replay, full width
@@ -4612,6 +4679,7 @@ def main() -> int:
     _import_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.agg_adam import ops as agg_ops
+    from repro_torch.kernels.ef_round import ops as ef_ops
     from repro_torch.kernels.embed_bag import ops as eb_ops
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.relayout import ops as rl_ops
@@ -4645,6 +4713,7 @@ def main() -> int:
         "agg_adam_dense": agg_ops.aggregate_adam,
         "flash_attention": fa_ops.flash_attention,
         "embed_bag": eb_ops.embedding_bags,
+        "ef_round": ef_ops.ef_round,
     }
     totals = dict.fromkeys(wrappers, 0)
 
@@ -4748,9 +4817,10 @@ def main() -> int:
 
     # ---- phase q: compressed pushes, a lease reclaim and a checkpoint on
     # a fresh sharded fleet; then the leak check of phases s, r and q
-    counts, s = compressed_phase(device, wrappers, scale, s_tick_ms)
+    counts, s, entries["ef_round"] = compressed_phase(device, wrappers, scale,
+                                                      s_tick_ms)
     _require(counts, ("agg_adam_multijob_fused", "relayout_stage",
-                      "relayout_scatter"), "q")
+                      "relayout_scatter", "ef_round"), "q")
     add_totals(counts)
     del s
     gc.collect()
@@ -4769,7 +4839,8 @@ def main() -> int:
 
     # ---- phase d: real models on the device
     counts = mlp_phase(device, wrappers)
-    _require(counts, ("agg_adam_multijob_fused", "agg_adam_blocks"), "d")
+    _require(counts, ("agg_adam_multijob_fused", "agg_adam_blocks",
+                      "ef_round"), "d")
     add_totals(counts)
 
     # ---- phases e and f: Qwen1.5-0.5B training, full width and depth
@@ -4911,6 +4982,10 @@ def main() -> int:
             "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu",
             "src/repro/kernels/embed_bag/kernel.py:34",
             totals["embed_bag"]),  # phases i, j and w
+        "ef_round": (  # no TPU kernel: the reference's round is plain jnp
+            "src/repro_torch/kernels/ef_round/csrc/ef_round.cu",
+            "src/repro/ps/compression.py:74",
+            totals["ef_round"]),  # phase q's fused ticks and phase d
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

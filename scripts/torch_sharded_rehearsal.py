@@ -38,6 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
 from repro_torch.kernels.agg_adam import ops as agg_ops  # noqa: E402
+from repro_torch.kernels.ef_round import ops as ef_ops  # noqa: E402
 from repro_torch.kernels.relayout import ops as rl_ops  # noqa: E402
 
 
@@ -77,6 +78,7 @@ def main() -> int:
         "relayout_stage": counting(rl_ops, "relayout_stage"),
         "relayout_scatter": counting(rl_ops, "relayout_scatter"),
         "agg_adam_blocks": counting(agg_ops, "aggregate_adam_blocks"),
+        "ef_round": counting(ef_ops, "ef_round"),
     }
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
@@ -90,8 +92,8 @@ def main() -> int:
     print(f"rehearsal at scale {args.scale}: phase r calls {counts}")
     s_tick_ms = s.fleet_tick_ms
     del s
-    counts, s = chip_smoke.compressed_phase(torch.device("cpu"), wrappers,
-                                            args.scale, s_tick_ms)
+    counts, s, _ = chip_smoke.compressed_phase(torch.device("cpu"),
+                                               wrappers, args.scale, s_tick_ms)
     print(f"rehearsal at scale {args.scale}: phase q calls {counts}")
     del s
     counts = chip_smoke.replay_phase(torch.device("cpu"), wrappers,

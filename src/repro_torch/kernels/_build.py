@@ -27,7 +27,7 @@ from typing import Dict, Iterable, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
-FAMILIES = ("agg_adam", "relayout", "flash_attn", "embed_bag")
+FAMILIES = ("agg_adam", "relayout", "flash_attn", "embed_bag", "ef_round")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

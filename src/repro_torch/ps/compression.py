@@ -7,13 +7,17 @@ into the next round's gradient (EF-SGD), so the compressed chain stays
 convergent.  ``compress_decompress`` returns the dequantized value; the
 wire cost of the compressed form is ``wire_bytes``.
 
-Plain PyTorch on every device: the reference writes no kernel here.  The
-arithmetic keeps the reference's grouping (``x / scale * 127``, then
-``q * scale / 127``) and rounds half to even, so on the CPU the port
-equals the reference's eager path bit for bit.  Every division is by a
-tensor on the operand's device, never by a host scalar: CUDA's ``div``
-turns a host-scalar divisor into a multiply by its reciprocal, which
-would round differently from the CPU.
+The functions here are plain PyTorch on every device.  The service's
+error-feedback round (``runtime._ef_round``) runs them on the CPU; on a
+card it goes through the hand-written kernel of
+``repro_torch.kernels.ef_round``, one pass that equals ``ef_transform``
+between a row gather and a row scatter bit for bit (the reference writes
+no kernel here).  The arithmetic keeps the reference's grouping
+(``x / scale * 127``, then ``q * scale / 127``) and rounds half to even,
+so on the CPU the port equals the reference's eager path bit for bit.
+Every division is by a tensor on the operand's device, never by a host
+scalar: CUDA's ``div`` turns a host-scalar divisor into a multiply by
+its reciprocal, which would round differently from the CPU.
 """
 
 from __future__ import annotations
@@ -104,8 +108,9 @@ def ef_transform(g: torch.Tensor, ef: torch.Tensor, kind: str
     ``g' = g + ef``, ``q = compress_decompress(g')``, ``resid = g' - q``.
     Both arguments are only read; the results are new tensors.  The
     runtime's compressed steps and both engines' appliers run this one
-    function (through ``runtime._ef_round``), so their compressed
-    trajectories agree bit for bit."""
+    function (through ``runtime._ef_round``, whose kernel on a card
+    equals it bit for bit), so their compressed trajectories agree bit
+    for bit."""
     g = g + ef
     q = compress_decompress(g, kind)
     return q, g - q

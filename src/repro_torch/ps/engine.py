@@ -43,9 +43,10 @@ lanes roll back, replay and quarantine one by one, and a failed fleet
 launch falls back to per-shard launches of the same kernel.
 
 Compressed pushes (``push_compression="bf16"|"int8"`` on a job): each
-applier runs one error-feedback round (``runtime._ef_round``) on every
-compressed job's packed piece against its owned rows of the state's
-``ef`` buffer before the K1 launch, so the compressed trajectory is the
+applier runs one error-feedback round (``runtime._ef_round``: one
+``ef_round`` kernel launch on a card) on every compressed job's packed
+piece against its owned rows of the state's ``ef`` buffer before the K1
+launch, so the compressed trajectory is the
 block step's bit for bit.  ``ef`` rides snapshots, rollback and
 migrations with flat/mu/nu; on the sharded fleet it is a fourth arena
 leaf that K1 never reads.  ``TickStats.push_bytes_wire`` prices each push

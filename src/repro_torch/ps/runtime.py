@@ -40,6 +40,7 @@ from ..core.types import AggTask, JobProfile
 from ..device import host_to_device
 from ..kernels.agg_adam import ops as agg_ops
 from ..kernels.agg_adam import ref as agg_ref
+from ..kernels.ef_round import ops as ef_ops
 from ..tree import (  # noqa: F401  (re-exported for the runtime's users)
     _leaf_key,
     _tree_items,
@@ -220,21 +221,17 @@ def _ef_round(layout, ef: torch.Tensor, g: torch.Tensor, kind: str,
     """ONE error-feedback round of a job's packed gradient ``g`` against
     its owned rows of the full ``ef`` buffer: returns the compressed
     gradient and writes the residual back into those rows in place
-    (``ef_transform`` between a gather and a scatter).  The compressed
-    block step, the sharded step and every engine applier run this one
+    (``kernels.ef_round``: one kernel launch on a card, ``ef_transform``
+    between a gather and a scatter on the CPU).  The compressed block
+    step, the sharded step and every engine applier run this one
     function, so their compressed trajectories agree bit for bit.
     ``rows`` are the layout's owned blocks on ``ef``'s device, when the
     caller keeps them."""
     if layout.covers_all:
-        q, resid = ef_transform(g, ef, kind)
-        ef.copy_(resid)
-        return q
-    if rows is None:
+        rows = None
+    elif rows is None:
         rows = _rows(layout, ef.device)
-    view = ef.view(-1, layout.block)
-    q, resid = ef_transform(g, view[rows].reshape(-1), kind)
-    view[rows] = resid.view(-1, layout.block)
-    return q
+    return ef_ops.ef_round(g, ef, kind, rows, layout.block)
 
 
 def _layout_rows(layout, device) -> Tuple[Optional[torch.Tensor], ...]:
@@ -393,10 +390,9 @@ def _make_single_job_step(model_loss, plan, abstract_params, *, lr, b1, b2,
         loss, grads = grad_fn(params, batch)
         gflat = flatten_tree(plan, grads, device=flat.device)  # PUSH, fp32
         del params, grads
-        if push_compression:
-            gflat, resid = ef_transform(gflat, state["ef"], push_compression)
-            state["ef"].copy_(resid)
-            del resid
+        if push_compression:  # the whole space is the job's: no rows
+            gflat = ef_ops.ef_round(gflat, state["ef"], push_compression,
+                                    None, plan.block_align)
         count = state["count"] + 1
         if fused_kernel:
             agg_ops.adam_update(flat, gflat, state["mu"], state["nu"], count,
