@@ -3,11 +3,14 @@
 Same arithmetic as the reference, op for op: norms in float32 and cast
 back, RoPE on split halves, the chunked cross-entropy that never holds
 more than one sequence chunk's logits, with padded vocab columns and
-``-1`` labels masked, and the recsys towers' MLP.
+``-1`` labels masked, and the recsys towers' MLP.  Beside them, which the
+reference does not have: DeepSeek-V2's YaRN-scaled RoPE tables.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
@@ -62,28 +65,82 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 # ------------------------------------------------------------------- RoPE
+@dataclass(frozen=True)
+class YaRN:
+    """YaRN's RoPE scaling (arXiv:2309.00071) as DeepSeek-V2 configures it
+    (``rope_scaling`` of type ``yarn``; Hugging Face's
+    ``DeepseekV2YarnRotaryEmbedding``): the frequencies between the two
+    correction dims ramp from the original ones to ones ``factor`` times
+    lower, cos and sin are scaled by ``mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim)``, and MLA's softmax scale by
+    ``mscale(factor, mscale_all_dim) ** 2``."""
+
+    factor: float
+    original_max_len: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(scale: float, m: float) -> float:
+    """YaRN's magnitude correction ``0.1 m ln(scale) + 1``; 1 at scale <= 1."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def yarn_range(d_head: int, theta: float, y: YaRN):
+    """(low, high): the dims whose frequencies make ``beta_fast`` and
+    ``beta_slow`` turns over the original length, floored and ceiled,
+    clamped to [0, d_head - 1]."""
+    def corr(turns):
+        return (d_head * math.log(y.original_max_len / (2 * math.pi * turns))
+                / (2 * math.log(theta)))
+    return (max(math.floor(corr(y.beta_fast)), 0),
+            min(math.ceil(corr(y.beta_slow)), d_head - 1))
+
+
+def _inv_freq(d_head: int, theta: float, scaling: Optional[YaRN], device):
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    if scaling is None:
+        return 1.0 / (theta ** exps)
+    low, high = yarn_range(d_head, theta, scaling)
+    ramp = torch.clamp((torch.arange(d_head // 2, dtype=torch.float32,
+                                     device=device) - low)
+                       / max(high - low, 1e-3), 0.0, 1.0)
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (scaling.factor * theta ** exps)
+    return inter * ramp + extra * (1.0 - ramp)
+
+
+def _cos_sin(ang, scaling: Optional[YaRN]):
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        gain = (yarn_mscale(scaling.factor, scaling.mscale)
+                / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if gain != 1.0:
+            cos, sin = cos * gain, sin * gain
+    return cos, sin
+
+
 def rope_row(position: int, d_head: int, theta: float = 10000.0,
-             device=None):
+             device=None, scaling: Optional[YaRN] = None):
     """cos/sin tables with a single row for ``position`` (the decode path:
     no ``(max_len, d/2)`` table per step).  Returns ((1, d/2), (1, d/2))
     float32."""
-    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
-                        device=device) / d_head
-    inv = 1.0 / (theta ** exps)
+    inv = _inv_freq(d_head, theta, scaling, device)
     ang = torch.tensor(float(position), dtype=torch.float32,
                        device=device) * inv
-    return torch.cos(ang)[None], torch.sin(ang)[None]
+    cos, sin = _cos_sin(ang, scaling)
+    return cos[None], sin[None]
 
 
 def rope_frequencies(d_head: int, max_len: int, theta: float = 10000.0,
-                     device=None):
+                     device=None, scaling: Optional[YaRN] = None):
     """cos/sin tables, each (max_len, d_head/2) float32."""
-    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
-                        device=device) / d_head
-    inv = 1.0 / (theta ** exps)
+    inv = _inv_freq(d_head, theta, scaling, device)
     t = torch.arange(max_len, dtype=torch.float32, device=device)
-    freqs = torch.outer(t, inv)
-    return torch.cos(freqs), torch.sin(freqs)
+    return _cos_sin(torch.outer(t, inv), scaling)
 
 
 def apply_rope(x, cos, sin, positions=None):

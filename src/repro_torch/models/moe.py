@@ -12,6 +12,9 @@ distinct, and only the dropped slot C ever sums.  So one index write of
 all k choices gives the same buffer, with no accumulation, which keeps it
 deterministic on CUDA.  The expert products are ``torch.einsum``, as the
 reference leaves them to XLA; nothing here is a kernel of its own.
+``DeepSeekMoEConfig`` adds DeepSeek-V2's sequence-wise balance loss and
+the experts one device holds, whose part ``_held_experts_ffn`` computes
+(the reference has neither).
 
 Under an activation-sharding context (``ps.act_sharding``) the hooks
 below redistribute DTensors as the reference's ``act.constrain`` points
@@ -26,7 +29,7 @@ and nothing changes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..ps import act_sharding as act
+from ..tracing import count, span
 from .layers import silu
 
 
@@ -48,6 +52,37 @@ class MoEConfig:
     aux_loss_coef: float = 0.01
     router_z_coef: float = 1e-3
     normalize_gates: bool = True  # DeepSeek/Mixtral renormalize top-k probs
+    # What ``DeepSeekMoEConfig`` sets; not fields here, so the config
+    # compares field for field with the reference's.
+    seq_aux: ClassVar[bool] = False
+    experts_held: ClassVar[Optional[Tuple[int, int]]] = None
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        """(first, count) of the experts held here."""
+        return self.experts_held or (0, self.n_experts)
+
+
+@dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """DeepSeek-V2's gate and balance loss, and the share of the experts
+    one device of expert parallelism holds."""
+
+    # The sequence-wise balance loss in place of the Switch-style one:
+    # per sequence, each expert's share of the S * k choices over its
+    # even share times its mean router probability, summed over experts,
+    # averaged over sequences (weighted by aux_loss_coef).
+    seq_aux: bool = False
+    # (first, count): the experts this device holds, of all n_experts the
+    # router scores; None holds them all.  See ``moe_ffn``.
+    experts_held: Optional[Tuple[int, int]] = None
+
+    def __post_init__(self):
+        if self.experts_held is not None:
+            first, n = self.experts_held
+            if not (0 <= first and 1 <= n and first + n <= self.n_experts):
+                raise ValueError(f"experts_held {self.experts_held} must "
+                                 f"lie within the {self.n_experts} experts")
 
 
 def expert_positions(eid: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -68,29 +103,52 @@ def expert_positions(eid: torch.Tensor, n_experts: int) -> torch.Tensor:
                                           rank_sorted.to(eid.dtype))
 
 
-def route(x, router_w, cfg: MoEConfig):
+def route(x, router_w, cfg: MoEConfig, n_seqs: int = 1):
     """Router: returns (gates (T,k) float32, idx (T,k) int64, aux_loss,
-    z_loss)."""
+    z_loss).  ``x`` holds ``n_seqs`` sequences of T / n_seqs tokens one
+    after another (the sequence-wise balance loss reads them)."""
     logits = x.float() @ router_w.float()  # (T,E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.normalize_gates:
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance loss: E * sum_e f_e * P_e
-    pe = probs.mean(0)  # (E,)
-    fe = F.one_hot(idx[:, 0], cfg.n_experts).float().mean(0)
-    aux = cfg.n_experts * torch.sum(fe * pe)
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if cfg.seq_aux:
+        aux = _seq_balance(probs, idx, cfg.n_experts, n_seqs)
+    else:
+        # Switch-style load-balance loss: E * sum_e f_e * P_e
+        pe = probs.mean(0)  # (E,)
+        fe = F.one_hot(idx[:, 0], cfg.n_experts).float().mean(0)
+        aux = cfg.n_experts * torch.sum(fe * pe)
+    z = (torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+         if cfg.router_z_coef else logits.new_zeros(()))
     return gates, idx, aux, z
 
 
+def _seq_balance(probs, idx, e: int, n_seqs: int):
+    """DeepSeek-V2's sequence-wise balance loss, before its coefficient:
+    mean over sequences of sum_e ce_e * mean_t probs[t, e], where ce_e is
+    expert e's count among the sequence's S * k choices over S * k / E."""
+    t, k = idx.shape
+    s = t // n_seqs
+    hits = torch.zeros((n_seqs, e), dtype=torch.float32, device=idx.device)
+    hits.scatter_add_(1, idx.reshape(n_seqs, s * k),
+                      torch.ones((n_seqs, s * k), device=idx.device))
+    ce = hits / (s * k / e)
+    return (ce * probs.reshape(n_seqs, s, e).mean(1)).sum(1).mean()
+
+
 def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
-            capacity: Optional[int] = None, n_groups: int = 1
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity: Optional[int] = None, n_groups: int = 1,
+            n_seqs: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) -> (y (T, d), aux losses scalar float32).
 
     Tokens are split into ``n_groups`` groups (one if ``n_groups`` does
-    not divide T), each with its own capacity C."""
+    not divide T), each with its own capacity C.  ``x`` holds ``n_seqs``
+    sequences one after another (for ``cfg.seq_aux``).  With
+    ``cfg.experts_held`` short of all the experts, ``_held_experts_ffn``
+    computes this device's part.  While a profiler records in a
+    ``tracing.counting`` block, the held experts' choices kept and
+    dropped by capacity are counted (``moe.kept``, ``moe.dropped``)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     g = n_groups if t % n_groups == 0 else 1
@@ -98,51 +156,105 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
     if capacity is None:
         capacity = max(1, int(cfg.capacity_factor * tg * k / e))
 
-    gates, idx, aux, z = route(x, params["router"], cfg)
+    with span("moe.route"):
+        gates, idx, aux, z = route(x, params["router"], cfg, n_seqs)
+    if cfg.held[1] < e:
+        y = _held_experts_ffn(x, params, cfg, capacity, g, gates, idx)
+    else:
+        with span("moe.dispatch"):
+            # Per-group slot positions within each expert queue, over
+            # all k choices of the group's tokens.
+            idx_g = idx.reshape(g, tg, k)
+            gates_g = gates.reshape(g, tg, k)
+            pos_g = act.per_device(lambda i: expert_positions(i, e), (),
+                                   idx_g.reshape(g, tg * k)).reshape(g, tg, k)
+            slot = torch.clamp(pos_g, max=capacity)  # overflow: slot C
+            gidx = torch.arange(g, device=x.device)[:, None, None]
+            count("moe.kept", lambda: (pos_g < capacity).sum())
+            count("moe.dropped", lambda: (pos_g >= capacity).sum())
 
-    # Per-group slot positions within each expert queue, over all k
-    # choices of the group's tokens.
-    idx_g = idx.reshape(g, tg, k)
-    gates_g = gates.reshape(g, tg, k)
-    pos_g = act.per_device(lambda i: expert_positions(i, e), (),
-                           idx_g.reshape(g, tg * k)).reshape(g, tg, k)
-    slot = torch.clamp(pos_g, max=capacity)  # overflow -> slot C (dropped)
-    gidx = torch.arange(g, device=x.device)[:, None, None]
+            # Dispatch: one index write of every (token, choice); the kept
+            # slots are distinct, only slot C is written more than once.
+            xg = act.constrain(x.reshape(g, tg, d), "dp", None, None)
+            xg = xg.reshape(g, tg, 1, d).expand(g, tg, k, d)
+            buf = torch.zeros((g, e, capacity + 1, d), dtype=x.dtype,
+                              device=x.device)
+            buf = buf.index_put((gidx, idx_g, slot), xg)[:, :, :capacity]
+            buf = act.constrain(buf, "dp", "tp", None, None)  # the EP exchange
 
-    # Dispatch: one index write of every (token, choice); the kept slots
-    # are distinct, only slot C is written more than once.
-    xg = act.constrain(x.reshape(g, tg, d), "dp", None, None)
-    xg = xg.reshape(g, tg, 1, d).expand(g, tg, k, d)
-    buf = torch.zeros((g, e, capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
-    buf = buf.index_put((gidx, idx_g, slot), xg)[:, :, :capacity]
-    buf = act.constrain(buf, "dp", "tp", None, None)  # the EP exchange
+        with span("moe.experts"):
+            # Expert computation (SwiGLU), experts over "model".
+            h = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
+            h = act.constrain(h, "dp", "tp", None, None)
+            u = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
+            out = torch.einsum("gecf,efd->gecd", silu(h) * u,
+                               params["w_down"])
+            out = act.constrain(out, "dp", "tp", None, None)
+            out = torch.cat([out, out.new_zeros((g, e, 1, d))], dim=2)
+            out = act.constrain(out, "dp", None, None, None)  # group-local
 
-    # Expert computation (SwiGLU), experts over "model".
-    h = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
-    h = act.constrain(h, "dp", "tp", None, None)
-    u = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
-    out = torch.einsum("gecf,efd->gecd", silu(h) * u, params["w_down"])
-    out = act.constrain(out, "dp", "tp", None, None)
-    out = torch.cat([out, out.new_zeros((g, e, 1, d))], dim=2)
-    out = act.constrain(out, "dp", None, None, None)  # back to group-local
-
-    # Combine: k gathers, gate-weighted, summed in x.dtype.
-    gidx = gidx[:, :, 0]
-    y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y = y + (gates_g[:, :, j, None].to(x.dtype)
-                 * out[gidx, idx_g[:, :, j], slot[:, :, j]])
-    y = y.reshape(t, d)
+        with span("moe.combine"):
+            # Combine: k gathers, gate-weighted, summed in x.dtype.
+            gidx = gidx[:, :, 0]
+            y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
+            for j in range(k):
+                y = y + (gates_g[:, :, j, None].to(x.dtype)
+                         * out[gidx, idx_g[:, :, j], slot[:, :, j]])
+            y = y.reshape(t, d)
 
     # Shared experts (always-on path, DeepSeek-style).
     if cfg.d_ff_shared > 0:
-        sh = silu(x @ params["shared_gate"]) * (x @ params["shared_up"])
-        sh = act.constrain(sh, "dp", "tp")
-        y = y + sh @ params["shared_down"]
+        with span("moe.shared"):
+            sh = silu(x @ params["shared_gate"]) * (x @ params["shared_up"])
+            sh = act.constrain(sh, "dp", "tp")
+            y = y + sh @ params["shared_down"]
 
-    losses = cfg.aux_loss_coef * aux + cfg.router_z_coef * z
+    losses = cfg.aux_loss_coef * aux
+    if cfg.router_z_coef:
+        losses = losses + cfg.router_z_coef * z
     return y, losses
+
+
+def _held_experts_ffn(x, params, cfg: MoEConfig, capacity: int, g: int,
+                      gates, idx):
+    """The routed part of ``moe_ffn``'s output that the held experts give,
+    as one device of expert parallelism computes it (no exchange): the
+    slot ranks and the capacity are the whole layer's (each choice's rank
+    is the number of earlier choices of its group, token-major, for the
+    same expert), and only the held experts' kept choices are dispatched,
+    computed and combined.  Every choice has a row of its own in one
+    table: a kept one its expert's slot, any other a spare row of zeros,
+    so the dispatch writes and the combine's backward adds into distinct
+    rows (no sort, no host sync, deterministic)."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    first, n_held = cfg.held
+    tg = t // g
+    with span("moe.dispatch"):
+        choice = idx.reshape(g, tg * k)
+        # (g, E, tg * k): a running count along each expert's row
+        hits = choice[:, None, :] == torch.arange(e, device=x.device)[:, None]
+        pos = hits.cumsum(2).gather(1, choice[:, None, :])[:, 0] - 1
+        local = choice - first
+        held = (local >= 0) & (local < n_held)
+        kept = held & (pos < capacity)
+        count("moe.kept", lambda: kept.sum())
+        count("moe.dropped", lambda: held.sum() - kept.sum())
+        n_cells = g * n_held * capacity
+        group = torch.arange(g, device=x.device)[:, None]
+        spare = torch.arange(g * tg * k, device=x.device).view(g, tg * k)
+        cell = torch.where(kept, (group * n_held + local) * capacity + pos,
+                           n_cells + spare).reshape(-1)
+        rows = x[:, None, :].expand(t, k, d).reshape(t * k, d)
+        buf = x.new_zeros((n_cells + t * k, d)).index_put((cell,), rows)
+        buf = buf[:n_cells].view(g, n_held, capacity, d)
+    with span("moe.experts"):
+        out = (silu(buf @ params["w_gate"]) * (buf @ params["w_up"])
+               ) @ params["w_down"]
+    with span("moe.combine"):
+        table = torch.cat([out.reshape(n_cells, d), out.new_zeros((t * k, d))])
+        picked = table.index_select(0, cell).view(t, k, d)
+        return torch.bmm(gates.to(x.dtype).view(t, 1, k), picked).view(t, d)
 
 
 def moe_ffn_sharded(x3d, params: dict, cfg: MoEConfig
@@ -358,14 +470,14 @@ def init_moe_params(normal, d_model: int, cfg: MoEConfig, dtype,
     """The reference's MoE leaves (``init_moe_params``: same keys, shapes
     and dtypes, ``router`` float32 whatever ``dtype``), each prefixed by
     ``lead`` (the stacked layers), drawn by ``normal(shape, scale,
-    dtype)``."""
+    dtype)``; the expert leaves hold ``cfg.experts_held``'s count."""
     scale_in = d_model ** -0.5
-    e, f = cfg.n_experts, cfg.d_ff
+    e, f, held = cfg.n_experts, cfg.d_ff, cfg.held[1]
     p = {
         "router": normal(lead + (d_model, e), scale_in, torch.float32),
-        "w_gate": normal(lead + (e, d_model, f), scale_in, dtype),
-        "w_up": normal(lead + (e, d_model, f), scale_in, dtype),
-        "w_down": normal(lead + (e, f, d_model), f ** -0.5, dtype),
+        "w_gate": normal(lead + (held, d_model, f), scale_in, dtype),
+        "w_up": normal(lead + (held, d_model, f), scale_in, dtype),
+        "w_down": normal(lead + (held, f, d_model), f ** -0.5, dtype),
     }
     if cfg.d_ff_shared > 0:
         fs = cfg.d_ff_shared

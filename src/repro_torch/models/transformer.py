@@ -2,10 +2,12 @@
 architectures of the reference.
 
 GQA with optional QKV bias, MLA compressed-KV attention with its
-absorbed decode (deepseek-v2), the MoE FFN with shared experts
-(``models/moe.py``; granite-moe, deepseek-v2) after ``first_k_dense``
-leading dense layers, RoPE, RMS/LayerNorm, the parallel attention+FFN
-block, tied or separate unembedding, the layers kept as stacked ``(L,
+absorbed decode (deepseek-v2; with or without q compression), the MoE FFN
+with shared experts (``models/moe.py``; granite-moe, deepseek-v2) after
+``first_k_dense`` leading dense layers, RoPE (YaRN-scaled where the
+config says, as DeepSeek-V2-Lite's; ``rope_tables`` builds every path's
+tables), RMS/LayerNorm, the parallel attention+FFN block, tied or
+separate unembedding, the layers kept as stacked ``(L,
 ...)`` leaves (the reference's ``lax.scan`` layout) and run one at a time
 (remat through ``torch.utils.checkpoint`` when ``cfg.remat``),
 microbatched gradient accumulation, the chunked cross-entropy, and
@@ -21,14 +23,17 @@ logits) and redistribute DTensors under ``act.activate(mesh)``; the MoE
 FFN then takes the expert-parallel ``moe_ffn_sharded``.  With no
 context each hook returns its argument after one thread-local read, and
 the one-device paths are unchanged.  Matrix products are
-``torch.einsum`` / ``@``, as the reference leaves them to XLA.
+``torch.einsum`` / ``@``, as the reference leaves them to XLA.  The
+attention and FFN parts of a layer are spans (``repro_torch.tracing``):
+``mla.proj``, ``attn.core``, ``attn.out``, ``ffn.dense`` and the MoE's
+``moe.*``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, ClassVar, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,11 +43,13 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DeviceLike, resolve_device
 from ..ps import act_sharding as act
 from ..ps.sharding import spec_by_key
+from ..tracing import span
 from ..tree import tree_leaves, tree_leaves_by_key, tree_map
 from ..tree import tree_with_leaves
 from ..tree import value_and_grad
 from . import attention as attn_lib
 from .layers import (
+    YaRN,
     apply_rope,
     chunked_softmax_xent,
     layer_norm,
@@ -50,6 +57,7 @@ from .layers import (
     rope_frequencies,
     rope_row,
     silu,
+    yarn_mscale,
 )
 from .moe import (MoEConfig, init_moe_params, moe_ffn, moe_ffn_grouped_sharded,
                   moe_ffn_sharded)
@@ -59,7 +67,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass(frozen=True)
 class MLAConfig:
-    q_lora_rank: int = 1536
+    q_lora_rank: Optional[int] = 1536  # None: q straight from x (V2-Lite)
     kv_lora_rank: int = 512
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
@@ -91,6 +99,9 @@ class LMConfig:
     attn_chunk_k: int = 0  # 0 -> full attention; >0 -> online-softmax chunks
     moe_capacity_factor_override: Optional[float] = None
     moe_groups: int = 1  # GShard-style dispatch groups
+    # What ``YaRNLMConfig`` sets; not a field here, so the config compares
+    # field for field with the reference's.
+    rope_scaling: ClassVar[Optional[YaRN]] = None
 
     @property
     def head_dim(self) -> int:
@@ -128,6 +139,13 @@ class LMConfig:
         n_moe_layers = self.n_layers - self.first_k_dense
         inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
         return total - inactive
+
+
+@dataclass(frozen=True)
+class YaRNLMConfig(LMConfig):
+    """An ``LMConfig`` whose RoPE is YaRN-scaled (DeepSeek-V2-Lite's)."""
+
+    rope_scaling: Optional[YaRN] = None
 
 
 # =============================================================== init
@@ -174,10 +192,14 @@ def _init_attn(cfg: LMConfig, init: _Init, lead) -> Dict[str, Any]:
         m = cfg.mla
         dqk = m.qk_nope_dim + m.qk_rope_dim
         r, rq = m.kv_lora_rank, m.q_lora_rank
+        if rq is None:
+            q = {"w_q": init.normal(lead + (d, hq, dqk), s, dt)}
+        else:
+            q = {"w_dq": init.normal(lead + (d, rq), s, dt),
+                 "q_norm": init.full(lead + (rq,), 1.0, torch.float32),
+                 "w_uq": init.normal(lead + (rq, hq, dqk), rq ** -0.5, dt)}
         return {
-            "w_dq": init.normal(lead + (d, rq), s, dt),
-            "q_norm": init.full(lead + (rq,), 1.0, torch.float32),
-            "w_uq": init.normal(lead + (rq, hq, dqk), rq ** -0.5, dt),
+            **q,
             "w_dkv": init.normal(lead + (d, r), s, dt),
             "kv_norm": init.full(lead + (r,), 1.0, torch.float32),
             "w_kr": init.normal(lead + (d, m.qk_rope_dim), s, dt),
@@ -340,43 +362,80 @@ def _attention_block(cfg: LMConfig, p, x, cos, sin, positions=None,
     q = act.constrain(q, "dp", None, "tp", None)  # TP over query heads
     k = act.constrain(k, "dp", None, "tp", None)
     v = act.constrain(v, "dp", None, "tp", None)
-    if attention == "flash":
-        o = attn_lib.flash_attention(q, k, v, causal=True)
-    else:
-        o = _plain_attention(cfg, q, k, v)
+    with span("attn.core"):
+        if attention == "flash":
+            o = attn_lib.flash_attention(q, k, v, causal=True)
+        else:
+            o = _plain_attention(cfg, q, k, v)
     o = act.constrain(o, "dp", None, "tp", None)
-    return _out_proj(o, p["w_o"])
+    with span("attn.out"):
+        return _out_proj(o, p["w_o"])
+
+
+def rope_tables(cfg: LMConfig, device, length: int = 0,
+                position: Optional[int] = None):
+    """The config's RoPE cos/sin tables (YaRN-scaled where it says) for
+    positions [0, length), or a single row for ``position`` (decode):
+    every path that rotates takes its tables here."""
+    if position is not None:
+        return rope_row(position, cfg.rope_dim, cfg.rope_theta,
+                        device=device, scaling=cfg.rope_scaling)
+    return rope_frequencies(cfg.rope_dim, length, cfg.rope_theta,
+                            device=device, scaling=cfg.rope_scaling)
+
+
+def _mla_scale(cfg: LMConfig) -> float:
+    """MLA's softmax scale: ``(nope + rope) ** -0.5``, times YaRN's
+    ``mscale(factor, mscale_all_dim) ** 2`` where the config scales."""
+    m, y = cfg.mla, cfg.rope_scaling
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if y is not None and y.mscale_all_dim:
+        scale = scale * yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_q(cfg: LMConfig, p, x):
+    """MLA's queries (B,S,H,nope+rope): through the low-rank projection
+    and its norm, or straight from x where ``q_lora_rank`` is None."""
+    if cfg.mla.q_lora_rank is None:
+        return (x @ p["w_q"].flatten(-2)).unflatten(-1, p["w_q"].shape[-2:])
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+    return torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])
 
 
 def _mla_attention(cfg: LMConfig, p, x, cos, sin, positions=None):
     """MLA, un-absorbed (training and prefill): q through its low-rank
-    projection, k/v expanded from the compressed latent, ``k_rope``
-    shared by all heads; scale ``(nope + rope) ** -0.5``."""
+    projection (or straight from x), k/v expanded from the compressed
+    latent, ``k_rope`` shared by all heads; scale ``_mla_scale``."""
     m = cfg.mla
     b, s, _ = x.shape
     # the sequence-parallel input gathered first, as the GQA path does (a
     # DTensor matmul flattens B and S, which it cannot while S is split)
     x = act.constrain(x, "dp", None, None)
-    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
-    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])  # (B,S,H,nope+rope)
-    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    q_rope = apply_rope(q_rope, cos, sin, positions)
+    with span("mla.proj"):
+        q = _mla_q(cfg, p, x)  # (B,S,H,nope+rope)
+        q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim],
+                                     dim=-1)
+        # q's rope part and the shared k_rope (B,S,1,rope) rotated in one
+        # call, as H + 1 heads
+        rot = apply_rope(torch.cat([q_rope, (x @ p["w_kr"])[:, :, None, :]],
+                                   dim=2), cos, sin, positions)
+        q_rope, k_rope = rot[:, :, :cfg.n_heads], rot[:, :, cfg.n_heads:]
 
-    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"])  # (B,S,r)
-    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], cos, sin,
-                        positions)  # (B,S,1,rope)
-    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
-    v = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
+        ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"])  # (B,S,r)
+        k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
+        v = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
 
-    q_full = act.constrain(torch.cat([q_nope, q_rope], dim=-1),
-                           "dp", None, "tp", None)
-    k_full = act.constrain(torch.cat(
-        [k_nope, k_rope.expand(b, s, cfg.n_heads, m.qk_rope_dim)], dim=-1),
-        "dp", None, "tp", None)
-    v = act.constrain(v, "dp", None, "tp", None)
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    o = _plain_attention(cfg, q_full, k_full, v, scale)
-    return _out_proj(o, p["w_o"])
+        q_full = act.constrain(torch.cat([q_nope, q_rope], dim=-1),
+                               "dp", None, "tp", None)
+        k_full = act.constrain(torch.cat(
+            [k_nope, k_rope.expand(b, s, cfg.n_heads, m.qk_rope_dim)],
+            dim=-1), "dp", None, "tp", None)
+        v = act.constrain(v, "dp", None, "tp", None)
+    with span("attn.core"):
+        o = _plain_attention(cfg, q_full, k_full, v, _mla_scale(cfg))
+    with span("attn.out"):
+        return _out_proj(o, p["w_o"])
 
 
 def _ffn_block(cfg: LMConfig, p, x):
@@ -384,16 +443,20 @@ def _ffn_block(cfg: LMConfig, p, x):
     if "ffn" in p:
         f = p["ffn"]
         x = act.constrain(x, "dp", None, None)  # SP -> TP, as attention's
-        h = silu(x @ f["w_gate"]) * (x @ f["w_up"])
-        h = act.constrain(h, "dp", None, "tp")  # TP over FFN hidden
-        return h @ f["w_down"], torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+        with span("ffn.dense"):
+            h = silu(x @ f["w_gate"]) * (x @ f["w_up"])
+            h = act.constrain(h, "dp", None, "tp")  # TP over FFN hidden
+            return h @ f["w_down"], torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
     b, s, d = x.shape
     cfg_moe = cfg.moe
     if cfg.moe_capacity_factor_override is not None:
         cfg_moe = dataclasses.replace(
             cfg_moe, capacity_factor=cfg.moe_capacity_factor_override)
     ctx = act._current()
+    if ctx is not None and (cfg_moe.seq_aux or cfg_moe.experts_held):
+        raise NotImplementedError("under a mesh the MoE runs all experts "
+                                  "with the Switch-style balance loss")
     if (ctx is not None
             and cfg_moe.n_experts % act.mesh_size(ctx, "tp") == 0):
         if b % act.mesh_size(ctx, "dp") == 0:
@@ -406,7 +469,7 @@ def _ffn_block(cfg: LMConfig, p, x):
             return moe_ffn_grouped_sharded(x, p["moe"], cfg_moe,
                                            n_groups=cfg.moe_groups)
     y, aux = moe_ffn(x.reshape(b * s, d), p["moe"], cfg_moe,
-                     n_groups=cfg.moe_groups)
+                     n_groups=cfg.moe_groups, n_seqs=b)
     return y.reshape(b, s, d), aux
 
 
@@ -451,8 +514,7 @@ def forward_hidden(cfg: LMConfig, params, tokens, attention: str = "plain"
     # them in parallel, in an order that changes from run to run.
     x = F.embedding(tokens.long(), _embed_table(cfg, params))
     x = act.constrain(x, "dp", "tp", None)  # sequence-parallel residual
-    cos, sin = rope_frequencies(cfg.rope_dim, tokens.shape[1],
-                                cfg.rope_theta, device=x.device)
+    cos, sin = rope_tables(cfg, x.device, tokens.shape[1])
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.first_k_dense):
         x, aux = _layer_fn(cfg, params[f"dense_layer_{i}"], x, cos, sin,
@@ -614,8 +676,7 @@ def _decode_attn_mla(cfg, p, x, cache_len: int, cos, sin, cache_ckv,
     m = cfg.mla
     b = x.shape[0]
     pos = torch.zeros((b, 1), dtype=torch.long, device=x.device)
-    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
-    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])[:, 0]  # (B,H,nope+rope)
+    q = _mla_q(cfg, p, x)[:, 0]  # (B,H,nope+rope)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope[:, None], cos, sin, pos)[:, 0]
 
@@ -626,7 +687,7 @@ def _decode_attn_mla(cfg, p, x, cache_len: int, cos, sin, cache_ckv,
     cache_kr[:, cache_len:cache_len + 1] = kr_new
 
     q_lat = torch.einsum("bhe,rhe->bhr", q_nope, p["w_uk"])  # (B,H,r)
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scale = _mla_scale(cfg)
     s = (torch.einsum("bhr,bkr->bhk", q_lat, cache_ckv)
          + torch.einsum("bhe,bke->bhk", q_rope, cache_kr)).float() * scale
     valid = torch.arange(cache_ckv.shape[1], device=x.device) < cache_len + 1
@@ -656,8 +717,7 @@ def make_serve_step(cfg: LMConfig):
             x = F.embedding(tokens.long(), params["embed"])  # (B,1,d)
             # reduce a vocab-sharded lookup at once, as forward_hidden does
             x = act.constrain(x, "dp", "tp", None)
-            cos, sin = rope_row(length, cfg.rope_dim, cfg.rope_theta,
-                                device=x.device)
+            cos, sin = rope_tables(cfg, x.device, position=length)
 
             def run_layer(p, x, layer_cache):
                 # under a mesh each block's pending sum is reduced before

@@ -22,13 +22,22 @@ carries no second copy of it.
 
 Replans are rare and long, so their phases are also timed on the host
 clock whether or not a profiler records (:func:`timed`).
+
+Counters (:func:`count`) are device tensors the model adds to while a
+profiler records and a :func:`counting` block is open: the MoE layer's
+``moe.kept`` and ``moe.dropped`` choices.  Each addition is kept as its
+own tensor (a step under ``torch.func`` may not write a tensor made
+outside it), so nothing waits for the device until
+:meth:`Counts.read` after the traced stretch.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
 import time
-from typing import Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -59,3 +68,46 @@ def timed(name: str, totals: Dict[str, float]):
             yield
     finally:
         totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+
+
+class Counts:
+    """The counters added inside one :func:`counting` block."""
+
+    def __init__(self):
+        self._parts: Dict[str, List[torch.Tensor]] = \
+            collections.defaultdict(list)
+
+    def add(self, name: str, value: torch.Tensor) -> None:
+        self._parts[name].append(value)
+
+    def read(self) -> Dict[str, int]:
+        """{name: total} of every counter added to (one synchronize)."""
+        return {name: int(torch.stack([p.reshape(()) for p in parts]).sum())
+                for name, parts in self._parts.items()}
+
+
+_COUNTS: contextvars.ContextVar[Optional[Counts]] = contextvars.ContextVar(
+    "repro_torch_counts", default=None)
+
+
+@contextlib.contextmanager
+def counting():
+    """A block whose counters are kept, while a profiler records, in the
+    :class:`Counts` it yields."""
+    counts = Counts()
+    token = _COUNTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+def count(name: str, value: Callable[[], torch.Tensor]) -> None:
+    """Add ``value()`` (a device scalar, computed only then) to counter
+    ``name`` while a profiler records inside a :func:`counting` block;
+    nothing otherwise."""
+    if not _recording():
+        return
+    counts = _COUNTS.get()
+    if counts is not None:
+        counts.add(name, value())
